@@ -20,3 +20,8 @@ def pytest_configure(config):
         "slow: long-running test (subprocess with multiple placeholder "
         "devices, or multi-second training loops)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (a hand-written kernel of repro_torch has "
+        "no CPU mode); skips where torch.cuda.is_available() is False",
+    )

@@ -1,0 +1,64 @@
+"""Import hygiene of the port: ``repro_torch`` never imports ``jax`` or the
+``repro`` reference package, statically or at run time."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+PKG = os.path.join(ROOT, "src", "repro_torch")
+FORBIDDEN = ("jax", "repro")
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+
+
+def _forbidden_imports(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [n for n in names if n.split(".")[0] in FORBIDDEN]
+    return bad
+
+
+def test_static_scan_finds_no_jax_or_repro_import():
+    files = list(_sources())
+    assert len(files) >= 17
+    found = {os.path.relpath(f, PKG): b for f in files if (b := _forbidden_imports(f))}
+    assert found == {}
+
+
+def test_scanner_flags_what_it_must(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text("import jax.numpy as jnp\nfrom repro.core import index\n"
+                   "from repro_torch import api\nfrom . import repro\n")
+    assert _forbidden_imports(str(bad)) == ["jax.numpy", "repro.core"]
+
+
+@pytest.mark.parametrize("module", ["repro_torch.launch.serve", "repro_torch.convert"])
+def test_import_leaves_no_jax_or_repro_module(module):
+    code = (
+        f"import sys, {module}\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        f"assert {module!r} in sys.modules\n"
+        "print(bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
