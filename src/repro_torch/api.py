@@ -39,7 +39,7 @@ class EngineConfig:
     device: str = "cuda"           # torch device of the "torch" backend
     fused: bool = True             # fused locate->decode_search path
     group: bool = True             # group duplicate cursors
-    resident: str = "auto"         # ranked engine residency (ranked slice)
+    resident: str = "auto"         # ranked residency: "auto" | "mirror" | "kernel"
     codec_policy: str = "auto"     # arena codec: "svb" | "auto" | "ef"
     shards: int | None = None      # list-hash shard count (sharding slice)
     shard_mesh: object = "auto"    # (sharding slice)
@@ -100,8 +100,8 @@ class EngineConfig:
             with open(path) as fh:
                 base = cls.from_json(fh.read())
         updates = {}
-        for name in ("backend", "device", "fused", "group", "cache_parts",
-                     "cache_bytes"):
+        for name in ("backend", "device", "fused", "group", "resident",
+                     "cache_parts", "cache_bytes"):
             val = getattr(ns, name, None)
             if val is not None:
                 updates[name] = val
@@ -181,3 +181,11 @@ def make_query_engine(index, config: EngineConfig | None = None):
     from .core.query_engine import QueryEngine
 
     return QueryEngine(index, config=config or EngineConfig())
+
+
+def make_topk_engine(index, config: EngineConfig | None = None):
+    """Ranked BM25 top-k engine over a freq-carrying ``index`` from one
+    ``EngineConfig``."""
+    from .ranked.topk_engine import TopKEngine
+
+    return TopKEngine(index, config=config or EngineConfig())

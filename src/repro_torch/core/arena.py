@@ -36,8 +36,18 @@ arrays.  Single-codec arenas keep ``block_codec = None``.
 The policy-independent half of the transcode (decoding every partition
 into padded block gaps and sidecars) is cached on the index, so building
 the arena of a second policy over the same index only re-splits codecs.
-Ranked sidecars (term frequencies, block-max bounds) come with the ranked
-slice of the port.
+
+When the index carries a freq stream (``index.has_freqs``), the arena also
+carries the RANKED sidecar (``RankedSidecar``): the per-posting term
+frequencies re-encoded into PARALLEL Stream-VByte blocks (``freq_lens`` /
+``freq_data``, lane-aligned with the docID blocks and per BLOCK whatever
+the docID codec), an 8-bit quantized length-norm code per lane
+(``norm_q``), and the block-max structure: ``block_max_q[b]``, an
+upper-bound-safe u8 quantization of the true maximum contract score inside
+block b, plus per-list upper bounds and idf.  Quantization rounds UP (and
+is then verified lane-exactly), so no block's true max ever exceeds its
+dequantized bound -- the admissibility invariant Block-Max pruning rests
+on.
 """
 
 from __future__ import annotations
@@ -56,6 +66,35 @@ TAG_EF = 2  # mirrors repro_torch.core.index (which imports this module)
 CODEC_SVB = 0  # block_codec values
 CODEC_EF = 1
 CODEC_POLICIES = ("svb", "auto", "ef")
+
+
+@dataclass
+class RankedSidecar:
+    """Freq blocks + BM25 block-max structure riding the arena."""
+
+    freq_lens: np.ndarray    # [nb_padded, 128] int32  (VByte of tf - 1)
+    freq_data: np.ndarray    # [nb_padded, 512] uint8
+    norm_q: np.ndarray       # [n_blocks, 128] uint8  quantized doc-norm code
+    block_max_q: np.ndarray  # [n_blocks] uint8  quantized score upper bound
+    bound_scale: np.float32  # dequant: bound(b) = block_max_q[b] * bound_scale
+    idf: np.ndarray          # [n_lists] float32
+    list_ub: np.ndarray      # [n_lists] float32  max block bound per list
+    kmin: np.float32         # norm dequant grid (repro_torch.ranked.bm25)
+    kstep: np.float32
+    norm_table: np.ndarray   # [256] float32  gathered (never recomputed)
+    params: object           # BM25Params the sidecar was built with
+
+    def block_bounds(self) -> np.ndarray:
+        """Dequantized per-block score upper bounds, float32 (admissible)."""
+        return (
+            self.block_max_q.astype(np.float32) * np.float32(self.bound_scale)
+        )
+
+    def nbytes(self) -> int:
+        return int(
+            self.freq_lens.nbytes + self.freq_data.nbytes + self.norm_q.nbytes
+            + self.block_max_q.nbytes
+        )
 
 
 @dataclass
@@ -79,6 +118,7 @@ class DeviceArena:
     stride: int = 0
     n_blocks: int = 0
     device_ok: bool = True
+    ranked: RankedSidecar | None = None
     # multi-codec layout (None on single-codec arenas)
     block_codec: np.ndarray | None = None  # [n_blocks] uint8  0=SVB 1=EF
     codec_row: np.ndarray | None = None    # [n_blocks] int64  row in codec
@@ -97,6 +137,9 @@ class DeviceArena:
 
         int32 throughout, as the reference narrows its device copies: the
         int64 sidecars are cast, and the EF tiles widen from uint16/uint8.
+        A ranked arena adds its freq tiles, the norm codes (kept uint8),
+        idf per list, the norm table (float32) and ``lob``, the owning list
+        of every block (int32), through which the kernels reach idf.
         """
         device = torch.device(device)
         got = self._dev.get(str(device))
@@ -121,6 +164,14 @@ class DeviceArena:
                 got.ef_lo = up(self.ef_lo)
                 got.ef_hi = up(self.ef_hi)
                 got.ef_lbits = up(self.ef_lbits)
+            r = self.ranked
+            if r is not None:
+                got.freq_lens = up(r.freq_lens)
+                got.freq_data = up(r.freq_data, np.uint8)
+                got.norm_q = up(r.norm_q, np.uint8)
+                got.idf = up(r.idf, np.float32)
+                got.norm_table = up(r.norm_table, np.float32)
+                got.lob = up(self.part_list[self.part_of_block])
             self._dev[str(device)] = got
         return got
 
@@ -129,7 +180,7 @@ class DeviceArena:
         total = int(
             self.lens.nbytes + self.data.nbytes + self.block_base.nbytes
             + self.block_keys.nbytes + self.lane_valid.nbytes
-        )
+        ) + (self.ranked.nbytes() if self.ranked is not None else 0)
         if self.block_codec is not None:
             total += int(
                 self.block_codec.nbytes + self.codec_row.nbytes
@@ -148,6 +199,8 @@ def _transcode(index) -> SimpleNamespace:
     """Decode every partition into padded block gaps + per-block sidecars.
 
     The policy-independent half of ``build_arena``, cached on the index.
+    The ranked sidecar is per BLOCK whatever the docID codec, so it is
+    built here too, once per index.
     """
     from .bitvector import bitvector_decode
     from .eliasfano import ef_decode
@@ -174,10 +227,19 @@ def _transcode(index) -> SimpleNamespace:
         first_blk[1:] = np.cumsum(n_blk)[:-1]
     nb = int(n_blk.sum())
 
+    ranked_on = bool(getattr(index, "has_freqs", False))
     gaps_m1 = np.zeros(nb * BLOCK_VALS, np.uint32)
     block_base = np.zeros(nb, np.int64)
     block_last = np.zeros(nb, np.int64)
     lane_valid = np.zeros((nb, BLOCK_VALS), bool)
+    tf_m1 = np.zeros(nb * BLOCK_VALS, np.uint32) if ranked_on else None
+    norm_q = np.zeros(nb * BLOCK_VALS, np.uint8) if ranked_on else None
+    if ranked_on:
+        from ..ranked.bm25 import DEFAULT_BM25, quantize_norms
+
+        q_norms, kmin, kstep = quantize_norms(
+            index.doc_lens, index.avg_dl, DEFAULT_BM25
+        )
     payload_end = index.offsets[1:].tolist() + [index.payload.size]
     for p in range(n_parts):
         off, end = int(index.offsets[p]), int(payload_end[p])
@@ -202,10 +264,20 @@ def _transcode(index) -> SimpleNamespace:
         ]
         lv = lane_valid[b0 : b0 + k].reshape(-1)
         lv[:size] = True
+        if ranked_on:
+            tf_m1[s : s + size] = index._decode_partition_freqs(p) - 1
+            norm_q[s : s + size] = q_norms[vals]
+    ranked = None
+    if ranked_on:
+        ranked = _build_ranked_sidecar(
+            index, tf_m1, norm_q, lane_valid, part_list, n_blk, nb,
+            kmin, kstep,
+        )
     index._transcode = SimpleNamespace(
         n_parts=n_parts, sizes=sizes, part_list=part_list, bases=bases,
         n_blk=n_blk, first_blk=first_blk, nb=nb, gaps_m1=gaps_m1,
         block_base=block_base, block_last=block_last, lane_valid=lane_valid,
+        ranked=ranked,
     )
     return index._transcode
 
@@ -226,11 +298,6 @@ def build_arena(index, codec_policy: str = "auto") -> DeviceArena:
         raise ValueError(
             f"codec_policy must be one of {CODEC_POLICIES}, got "
             f"{codec_policy!r}"
-        )
-    if getattr(index, "has_freqs", False):
-        raise NotImplementedError(
-            "index carries a freq stream: the ranked sidecar (BM25 block-max "
-            "bounds) comes with the ranked slice of the port"
         )
     t = _transcode(index)
     nb, block_base, gaps_m1 = t.nb, t.block_base, t.gaps_m1
@@ -294,9 +361,80 @@ def build_arena(index, codec_policy: str = "auto") -> DeviceArena:
         stride=stride,
         n_blocks=nb,
         device_ok=bool(device_ok),
+        ranked=t.ranked,
         block_codec=block_codec,
         codec_row=codec_row,
         ef_lo=ef_lo,
         ef_hi=ef_hi,
         ef_lbits=ef_lbits,
+    )
+
+
+def _build_ranked_sidecar(
+    index, tf_m1, norm_q, lane_valid, part_list, n_blk, nb, kmin, kstep
+) -> RankedSidecar:
+    """Freq blocks + admissible block-max bounds (see module docstring)."""
+    from ..kernels.vbyte_decode.ops import pack_blocks
+    from ..ranked.bm25 import (
+        DEFAULT_BM25,
+        dequant_norm,
+        idf,
+        norm_table,
+        score_tf,
+    )
+
+    freq_lens, freq_data, _ = pack_blocks(tf_m1)
+    idf_list = idf(index.n_docs_real, np.maximum(index.list_sizes, 1)).astype(
+        np.float32
+    )
+    # true per-lane contract scores (build-time only; never materialized at
+    # query time on the device)
+    list_of_block = part_list[np.repeat(np.arange(len(n_blk)), n_blk)] \
+        if len(n_blk) else np.zeros(0, np.int64)
+    lane_idf = np.repeat(idf_list[list_of_block], BLOCK_VALS) \
+        if nb else np.zeros(0, np.float32)
+    k_hat = dequant_norm(norm_q, kmin, kstep)
+    sc = score_tf(tf_m1.astype(np.int64) + 1, k_hat, lane_idf, DEFAULT_BM25)
+    sc = np.where(lane_valid.reshape(-1), sc, np.float32(0.0))
+    block_true_max = sc.reshape(nb, BLOCK_VALS).max(axis=1) if nb \
+        else np.zeros(0, np.float32)
+    # upper-bound-safe u8 quantization: ceil onto a 255-level grid, then
+    # verify in the contract's float32 and bump where rounding undershot
+    scale = float(block_true_max.max()) if nb else 0.0
+    bound_scale = np.float32(scale / 255.0) if scale > 0 else np.float32(0.0)
+    # f32(255) * bound_scale can round BELOW scale, leaving the q=255 block
+    # inadmissible with no room to bump: nudge the scale up until it covers
+    while scale > 0 and np.float32(255.0) * bound_scale < np.float32(scale):
+        bound_scale = np.nextafter(bound_scale, np.float32(np.inf),
+                                   dtype=np.float32)
+    if scale > 0:
+        q = np.ceil(
+            block_true_max.astype(np.float64) / float(bound_scale) - 1e-9
+        ).astype(np.int64)
+        q = np.clip(q, 0, 255)
+        for _ in range(3):  # f32 dequant may still round below the true max
+            low = (q.astype(np.float32) * bound_scale) < block_true_max
+            if not low.any():
+                break
+            q[low] = np.minimum(q[low] + 1, 255)
+        q = q.astype(np.uint8)
+        assert np.all(q.astype(np.float32) * bound_scale >= block_true_max)
+    else:
+        q = np.zeros(nb, np.uint8)
+    bounds = q.astype(np.float32) * bound_scale
+    list_ub = np.zeros(index.n_lists, np.float32)
+    if nb:
+        np.maximum.at(list_ub, list_of_block, bounds)
+    return RankedSidecar(
+        freq_lens=freq_lens,
+        freq_data=freq_data,
+        norm_q=norm_q.reshape(nb, BLOCK_VALS),
+        block_max_q=q,
+        bound_scale=bound_scale,
+        idf=idf_list,
+        list_ub=list_ub,
+        kmin=kmin,
+        kstep=kstep,
+        norm_table=norm_table(kmin, kstep),
+        params=DEFAULT_BM25,
     )

@@ -1,10 +1,12 @@
 """Flat-mirror / locate / dispatch machinery of the batched engine.
 
-Counterpart of ``repro/core/engine_core.py`` (its boolean-AND half; the
-ranked pivot parts come with the ranked slice, the shard hooks with the
-sharding slice).  A batch of (term, probe) cursors is served by locating
-each cursor's arena row with ONE searchsorted over globally monotone keys,
-then resolving the cursor inside the located row.
+Counterpart of ``repro/core/engine_core.py`` (the shard hooks come with
+the sharding slice).  A batch of (term, probe) cursors is served by
+locating each cursor's arena row with ONE searchsorted over globally
+monotone keys, then resolving the cursor inside the located row.  The
+ranked engine adds the Block-Max pivot halves (``pivot_graph``,
+``pivot_score_graph``) over the bound-chunk table (``PivotChunks``) and
+the per-lane impact mirror (``lane_scores_fn`` -> ``flat_scores``).
 
 The subtleties, kept exactly as the reference has them:
 
@@ -37,14 +39,17 @@ CPU their plain versions.  The ``"numpy"`` backend is the host mirror.
 from __future__ import annotations
 
 from collections import OrderedDict
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from .. import obs
 from ..api import resolve_backend, resolve_device
+from ..kernels.blockmax_pivot.kernel import pivot_select
 from ..kernels.ef_search.kernel import ef_search
 from ..kernels.ef_search.ops import ef_decode_rows_np
+from ..kernels.pivot_score.kernel import pivot_score
 from ..kernels.vbyte_decode.kernel import BLOCK_VALS, BM, decode_blocks, decode_search
 from ..kernels.vbyte_decode.ops import decode_blocks_np
 from .arena import CODEC_EF
@@ -102,6 +107,93 @@ def locate_graph(block_keys, list_blk_offsets, stride, nb, terms, probes):
     return rows, pe, past
 
 
+def pivot_graph(pc_dev, rows, qmins):
+    """Block-Max pivot selection of chunk rows ``rows`` [n] int32 of the
+    resident chunk table ``pc_dev`` (``PivotChunks.on``) against the
+    per-cursor qmin tiles [n,128] int32 -> (compact, count, pivot, maxq),
+    through the ``pivot_select`` kernel.  Integer contract."""
+    return pivot_select(pc_dev.qb, pc_dev.nblk, qmins, rows)
+
+
+def pivot_score_graph(pc_dev, dev, rows, qmins, k1p1):
+    """Fused pivot + kept-slot scoring over the resident chunk table and
+    the resident freq sidecar ``dev`` (``DeviceArena.on``): keep-test,
+    compaction, pivot AND the scores of the first SCORE_SLOTS surviving
+    blocks of every cursor come back from ONE ``pivot_score`` launch ->
+    (compact, count, pivot, maxq, sscores)."""
+    return pivot_score(
+        pc_dev.qb, pc_dev.nblk, pc_dev.base, qmins, rows, dev.freq_lens,
+        dev.freq_data, dev.norm_q, dev.idf, dev.lob, dev.norm_table, k1p1,
+    )
+
+
+@dataclass
+class PivotChunks:
+    """``block_max_q`` re-tiled into per-list 128-lane chunks.
+
+    The pivot kernels consume bound CHUNKS -- up to 128 consecutive blocks
+    of one list per row -- so the ranked sidecar's flat [n_blocks] u8
+    array is re-tiled once per arena into a [n_chunks, 128] int32 table
+    plus per-chunk metadata.  Chunks never span lists; a list with b
+    blocks owns ceil(b / 128) consecutive chunk rows.
+    """
+
+    qb: np.ndarray  # [nc, 128] int32  block_max_q per lane (0 past nblk)
+    nblk: np.ndarray  # [nc] int32  valid lanes in the chunk
+    base: np.ndarray  # [nc] int64  arena row of lane 0
+    offsets: np.ndarray  # [n_lists + 1] int64  chunk range per list
+    _dev: dict = field(default_factory=dict, repr=False, compare=False)
+
+    def on(self, device):
+        """int32 tensors of the gatherable halves on ``device``, uploaded
+        once per device."""
+        device = torch.device(device)
+        got = self._dev.get(str(device))
+        if got is None:
+            from types import SimpleNamespace
+
+            def up(x):
+                return torch.from_numpy(
+                    np.ascontiguousarray(x, dtype=np.int32)
+                ).to(device)
+
+            got = SimpleNamespace(qb=up(self.qb), nblk=up(self.nblk),
+                                  base=up(self.base))
+            self._dev[str(device)] = got
+        return got
+
+
+def build_pivot_chunks(arena) -> PivotChunks:
+    """Re-tile one arena's ``block_max_q`` into ``PivotChunks``."""
+    r = arena.ranked
+    if r is None:
+        raise ValueError("pivot chunks need a ranked arena")
+    counts = np.diff(arena.list_blk_offsets)
+    nch = -(-counts // BLOCK_VALS)  # ceil: chunks per list
+    offsets = np.zeros(len(counts) + 1, np.int64)
+    np.cumsum(nch, out=offsets[1:])
+    nc = int(offsets[-1])
+    if nc == 0:
+        return PivotChunks(
+            qb=np.zeros((0, BLOCK_VALS), np.int32),
+            nblk=np.zeros(0, np.int32),
+            base=np.zeros(0, np.int64),
+            offsets=offsets,
+        )
+    list_of_chunk = np.repeat(np.arange(len(counts), dtype=np.int64), nch)
+    k_in = np.arange(nc, dtype=np.int64) - offsets[list_of_chunk]
+    base = arena.list_blk_offsets[list_of_chunk] + k_in * BLOCK_VALS
+    nblk = np.minimum(
+        counts[list_of_chunk] - k_in * BLOCK_VALS, BLOCK_VALS
+    ).astype(np.int32)
+    lane = np.arange(BLOCK_VALS, dtype=np.int64)
+    rows = np.minimum(base[:, None] + lane[None, :], arena.n_blocks - 1)
+    qb = np.where(
+        lane[None, :] < nblk[:, None], r.block_max_q[rows], 0
+    ).astype(np.int32)
+    return PivotChunks(qb=qb, nblk=nblk, base=base, offsets=offsets)
+
+
 def decode_rows_values(arena, rows, backend: str, device=None) -> np.ndarray:
     """[len(rows), 128] absolute docIDs of arena block rows, codec-aware.
 
@@ -156,6 +248,12 @@ class EngineCore:
         when one is named).
     cache_parts / cache_bytes: bounds of the decoded-row LRU; cache_bytes
         also gates the flat mirror (None = unbudgeted, always build it).
+    mirror_backend: backend used to DECODE the flat mirror (None = same as
+        ``backend``; TopKEngine passes "numpy" -- values are exact ints and
+        the mirror is a host structure whatever the scoring backend).
+    lane_scores_fn: optional ``() -> [n_blocks, 128] float32`` scoring every
+        arena lane; when given, ``flat_init`` masks padding lanes to 0 and
+        keeps the flat per-lane score mirror (TopKEngine's impact mirror).
     stats: optional dict to count into; missing keys are created.
     """
 
@@ -166,6 +264,8 @@ class EngineCore:
         device="cuda",
         cache_parts: int = 32_768,
         cache_bytes: int | None = None,
+        mirror_backend: str | None = None,
+        lane_scores_fn=None,
         stats: dict | None = None,
     ):
         self.arena = arena
@@ -184,14 +284,17 @@ class EngineCore:
             self.device = resolve_device(device)
         self.cache_parts = int(cache_parts)
         self.cache_bytes = None if cache_bytes is None else int(cache_bytes)
+        self.mirror_backend = mirror_backend or self.backend
+        self.lane_scores_fn = lane_scores_fn
         self.stats = stats if stats is not None else obs.CounterDict("engine")
         for key in ("decoded_rows", "kernel_calls", "cache_hits", "evictions"):
             self.stats.setdefault(key, 0)
         self.cache: OrderedDict = OrderedDict()
         self.cache_nbytes = 0
-        # flat mirror: decoded lane values + global lane keys
+        # flat mirror: decoded lane values + global lane keys (+ scores)
         self.flat_vals: np.ndarray | None = None
         self.flat_keys: np.ndarray | None = None
+        self.flat_scores: np.ndarray | None = None
         self.lane_end: np.ndarray | None = None
         self.flat_ok = None  # None = undecided, False = budget refused
 
@@ -228,7 +331,7 @@ class EngineCore:
     # host flat mirror: decoded lane docIDs + lane keys
     # ------------------------------------------------------------------
     def flat_init(self) -> bool:
-        """Decode the arena once into flat (values, lane keys).
+        """Decode the arena once into flat (values, lane keys[, scores]).
 
         Lane keys extend the arena's block keys to lane granularity with the
         padding clamp described in the module docstring; one searchsorted
@@ -243,8 +346,11 @@ class EngineCore:
             ):
                 self.flat_ok = False  # budget refused: per-call decode
                 return False
-            with obs.span("flat_init", backend=self.backend):
-                vals = self.decode_rows(np.arange(a.n_blocks, dtype=np.int64))
+            with obs.span("flat_init", backend=self.mirror_backend):
+                vals = decode_rows_values(
+                    a, np.arange(a.n_blocks, dtype=np.int64),
+                    self.mirror_backend, self.device,
+                )
             self.stats["kernel_calls"] += 1
             self.stats["decoded_rows"] += a.n_blocks
             # one sentinel lane so a past-the-end searchsorted result is
@@ -259,6 +365,13 @@ class EngineCore:
                 INT64_MAX,
             )
             self.lane_end = a.list_blk_offsets * BLOCK_VALS
+            if self.lane_scores_fn is not None and a.n_blocks:
+                scores = np.where(
+                    a.lane_valid, self.lane_scores_fn(), np.float32(0.0)
+                )
+                self.flat_scores = np.append(
+                    scores.reshape(-1).astype(np.float32), np.float32(0.0)
+                )
             if self.cache_bytes is not None:
                 # the flat arrays spend part of the decoded-bytes budget:
                 # LRU entries (decoded rows / lists) only get the remainder

@@ -4,12 +4,11 @@
 //   decode_blocks        -> vbyte_decode_blocks below
 //   decode_search_blocks -> vbyte_decode_search below
 //
-// Layout (repro_torch/kernels/vbyte_decode/ops.py::pack_blocks): one arena
-// row holds 128 values as int32 byte lengths (1..4) `lens[row, 128]` and
-// their little-endian bytes packed from the front of `data[row, 512]`.  A
-// decoded value is (gap - 1); the docIDs of a row are
-// block_base[row] + cumsum(gap), computed here in uint32 so that they wrap
-// exactly as the reference's int32 arithmetic does.
+// Layout: see svb_tile.cuh, which holds the warp row decoder these kernels
+// share with bm25_score.cu and pivot_score.cu.  A decoded value is
+// (gap - 1); the docIDs of a row are block_base[row] + cumsum(gap),
+// computed in uint32 so that they wrap exactly as the reference's int32
+// arithmetic does.
 //
 // What bounds it: bytes.  A row is 512 B of lens + 512 B of data read once,
 // and the arithmetic per byte is a handful of integer ops, so the floor is
@@ -18,12 +17,9 @@
 //
 // What the design does about it: the TPU version rebuilt the byte gather
 // as four one-hot matmuls because the TPU has no byte shuffle.  Here one
-// warp owns one row: each lane moves 16 B of lens and 16 B of data with a
-// single vector load (coalesced 512 B per warp per array), the data go to
-// shared memory, a warp exclusive scan of the lane byte counts gives every
-// value's offset, and each lane assembles its 4 values from shared memory.
-// decode_search gathers the located row itself (rows, codec_row), so no
-// gathered copy of the arena is ever materialised; it keeps the docIDs in
+// warp owns one row (svb_tile.cuh::decode_row).  decode_search gathers
+// the located row itself (rows, codec_row), so no gathered copy of the
+// arena is ever materialised; it keeps the docIDs in
 // registers and writes 8 B per cursor: the rank from four ballots + popc,
 // the value from a masked warp min.  Packing lens into 2 bits and staging
 // rows with TMA would cut the bytes further; that is later work.
@@ -32,45 +28,11 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "svb_tile.cuh"
+
 namespace {
 
-constexpr int kVals = 128;
-constexpr int kBytes = 512;
 constexpr int kWarps = 8;  // rows (or cursors) per 256-thread block
-constexpr unsigned kFull = 0xffffffffu;
-
-// Decode one row with one warp: lane t ends with values 4t .. 4t+3 as
-// uint32 (gap - 1).  `smem` is this warp's 512-byte staging buffer.
-__device__ __forceinline__ void decode_row(
-    const int* __restrict__ lens_row, const unsigned char* __restrict__ data_row,
-    unsigned char* smem, int lane, unsigned v[4]) {
-  reinterpret_cast<uint4*>(smem)[lane] =
-      reinterpret_cast<const uint4*>(data_row)[lane];
-  const int4 l4 = reinterpret_cast<const int4*>(lens_row)[lane];
-  const int len[4] = {l4.x, l4.y, l4.z, l4.w};
-  const int own = len[0] + len[1] + len[2] + len[3];
-  int incl = own;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl += y;
-  }
-  int start = incl - own;  // byte offset of value 4t within the row
-  __syncwarp();
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    unsigned x = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (len[e] > j) {
-        const int at = min(max(start + j, 0), kBytes - 1);
-        x |= static_cast<unsigned>(smem[at]) << (8 * j);
-      }
-    }
-    v[e] = x;
-    start += len[e];
-  }
-}
 
 __global__ void __launch_bounds__(32 * kWarps) decode_blocks_kernel(
     const int* __restrict__ lens, const unsigned char* __restrict__ data,
@@ -101,29 +63,15 @@ __global__ void __launch_bounds__(32 * kWarps) decode_search_kernel(
   const int probe = pe[c];
   unsigned v[4];
   decode_row(lens + srow * kVals, data + srow * kBytes, smem[warp], lane, v);
-  // docIDs: base + inclusive prefix of (gap - 1) + 1, wrapping in uint32
-  unsigned pre[4];
-  unsigned acc = 0;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    acc += v[e] + 1u;
-    pre[e] = acc;
-  }
-  unsigned incl = acc;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const unsigned y = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl += y;
-  }
-  const unsigned off = static_cast<unsigned>(block_base[row]) + (incl - acc);
+  int doc[4];
+  row_docids(static_cast<unsigned>(block_base[row]), v, lane, doc);
   int below_count = 0;
   int best = INT_MAX;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    const int doc = static_cast<int>(off + pre[e]);
-    const bool below = doc < probe;
+    const bool below = doc[e] < probe;
     below_count += __popc(__ballot_sync(kFull, below));
-    if (!below) best = min(best, doc);
+    if (!below) best = min(best, doc[e]);
   }
   best = __reduce_min_sync(kFull, best);
   if (lane == 0) {

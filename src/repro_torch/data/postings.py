@@ -129,18 +129,44 @@ def make_freqs(
     out = []
     for seq in lists:
         n = len(seq)
-        states = np.empty(n, dtype=bool)  # True = hot
         u = rng.random(n)
         s = rng.random() < frac_hot
-        for i in range(n):
-            states[i] = s
-            # hot stays hot w.p. stay_h; cold LEAVES cold w.p. 1 - stay_c
-            s = (u[i] < stay_h) if s else (u[i] >= stay_c)
+        states = _hot_states(u, s, stay_h, stay_c)  # True = hot
         hot = rng.zipf(zipf_hot, size=n)
         cold = rng.zipf(zipf_cold, size=n)
         tf = np.where(states, hot, cold)
         out.append(np.minimum(tf, max_tf).astype(np.int64))
     return out
+
+
+def _hot_states(u: np.ndarray, s0: bool, stay_h: float,
+                stay_c: float) -> np.ndarray:
+    """States of the hot/cold chain of ``make_freqs``, vectorized and exact.
+
+    The reference walks it in a Python loop: ``states[i] = s`` then ``s =
+    (u[i] < stay_h) if s else (u[i] >= stay_c)``.  Step i maps the state
+    through ``a = u[i] < stay_h`` (from hot) and ``b = u[i] >= stay_c``
+    (from cold): where ``a == b`` it SETS the state to ``a``, where ``a``
+    and not ``b`` it keeps it, and where ``b`` and not ``a`` it flips it.
+    So state i is the value of the last set before it (``s0`` if none),
+    flipped once per flip step in between -- the same booleans, with no
+    loop over the postings.
+    """
+    n = len(u)
+    a = u < stay_h
+    b = u >= stay_c
+    flip = b & ~a
+    flips = np.zeros(n + 1, np.int64)
+    np.cumsum(flip, out=flips[1:])
+    set_at = np.where(a == b, np.arange(n), -1)
+    last_set = np.maximum.accumulate(set_at) if n else set_at
+    before = np.empty(n, np.int64)  # last set step strictly before i
+    if n:
+        before[0] = -1
+        before[1:] = last_set[:-1]
+    value = np.where(before >= 0, a[np.maximum(before, 0)], bool(s0))
+    between = flips[np.arange(n)] - flips[before + 1]
+    return value ^ (between & 1).astype(bool)
 
 
 def make_ranked_corpus(

@@ -48,10 +48,17 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    """Where the library built from ``csrc/<name>.cu`` lives.
+
+    Named by the hash of the source and of every shared header of
+    ``csrc/``, so an edited header rebuilds the libraries that include it.
+    """
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(f.encode() + b"\0" + fh.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str):
@@ -101,17 +108,20 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def bind(lib: ctypes.CDLL, fn: str, n_ptrs: int, n_ints: int):
-    """Declare ``fn(ptr * n_ptrs, int * n_ints, stream) -> int``.
+def bind(lib: ctypes.CDLL, fn: str, n_ptrs: int, n_ints: int,
+         n_floats: int = 0):
+    """Declare ``fn(ptr * n_ptrs, int * n_ints, float * n_floats, stream)
+    -> int``.
 
     Every pointer and the stream are ``c_void_p``: left undeclared, ctypes
-    would pass them as 32-bit ints and cut them.
+    would pass them as 32-bit ints and cut them.  A float argument is a C
+    ``float``: the caller passes a value that float32 holds exactly.
     """
     f = getattr(lib, fn)
     if f.argtypes is None:
         f.argtypes = (
             [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-            + [ctypes.c_void_p]
+            + [ctypes.c_float] * n_floats + [ctypes.c_void_p]
         )
         f.restype = ctypes.c_int
     return f
@@ -121,6 +131,25 @@ def check(err: int, fn: str) -> None:
     """Raise if the C entry point reported a CUDA error for its launch."""
     if err != 0:
         raise RuntimeError(f"CUDA launch of {fn} failed: cudaError {err}")
+
+
+def ptx(name: str) -> str:
+    """The PTX ``nvcc`` emits for ``csrc/<name>.cu`` for the build's target
+    at the build's optimisation level (read to check what the compiler made
+    of the f32 contract)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, f"{name}.{os.getpid()}.ptx")
+    proc = subprocess.run(
+        [nvcc(), "-arch=compute_90a", "-std=c++17", "-O3", "-ptx", "-o", out,
+         os.path.join(CSRC, f"{name}.cu")],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -ptx failed on csrc/{name}.cu:\n{proc.stderr}")
+    with open(out) as fh:
+        text = fh.read()
+    os.remove(out)
+    return text
 
 
 def ptr(t) -> int | None:

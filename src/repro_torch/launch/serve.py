@@ -2,8 +2,10 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --n-lists 64 --queries 512
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --compare-scalar
+  PYTHONPATH=src python -m repro_torch.launch.serve --ranked --topk 10
 
-Counterpart of the boolean-AND path of ``repro/launch/serve.py``.  Builds
+Counterpart of the boolean-AND and ranked paths of
+``repro/launch/serve.py``.  Builds
 an optimally-partitioned index over a synthetic clustered corpus,
 transcodes it into the block arena, uploads the arena to the card, then
 serves boolean-AND queries through the batched
@@ -19,7 +21,12 @@ to start without one; ``--device cpu`` runs the plain PyTorch versions of
 the kernels instead.  ``--backend numpy`` serves from the host mirror.
 ``--codec {auto,svb,ef}`` selects the arena codec policy; ``--config
 FILE`` loads an ``EngineConfig`` JSON whose fields explicit flags override.
-Ranked, sharded, fault-injected and looped serving come with later slices.
+
+``--ranked`` serves exact BM25 top-k (``--topk``) instead, through
+``repro_torch.ranked.topk_engine.TopKEngine`` over the freq-carrying arena
+(``--resident {auto,mirror,kernel}``); ``--compare-scalar`` then checks
+every result against the exhaustive oracle ``exhaustive_topk``.  Sharded,
+fault-injected and looped serving come with later slices.
 """
 
 from __future__ import annotations
@@ -30,9 +37,15 @@ import sys
 import numpy as np
 
 from .. import obs
-from ..api import EngineConfig, make_query_engine, resolve_backend, resolve_device
+from ..api import (
+    EngineConfig,
+    make_query_engine,
+    make_topk_engine,
+    resolve_backend,
+    resolve_device,
+)
 from ..core import build_partitioned_index, build_unpartitioned_index
-from ..data.postings import make_corpus, make_queries
+from ..data.postings import make_corpus, make_freqs, make_queries
 
 _percentile = obs.Histogram.percentile_of
 
@@ -87,11 +100,23 @@ def build_parser() -> argparse.ArgumentParser:
                          "encoded size, 'svb' keeps the VByte/bitvector "
                          "arena, 'ef' prefers Elias-Fano wherever a block "
                          "is eligible")
+    ap.add_argument("--ranked", action="store_true",
+                    help="serve exact BM25 top-k over the freq-carrying "
+                         "arena instead of boolean AND")
+    ap.add_argument("--topk", type=int, default=10,
+                    help="results per ranked query")
+    ap.add_argument("--resident", default=None,
+                    choices=["auto", "mirror", "kernel"],
+                    help="ranked residency: 'mirror' scores the arena once "
+                         "into a host impact mirror, 'kernel' keeps only "
+                         "compressed blocks and bound tiles on the device "
+                         "and prunes there; 'auto' picks 'kernel' on a card")
     ap.add_argument("--config", default=None, metavar="PATH",
                     help="EngineConfig JSON file supplying the engine "
                          "options; explicit flags override its fields")
     ap.add_argument("--compare-scalar", action="store_true",
-                    help="also time the per-query NextGEQ loop and verify "
+                    help="also time the per-query NextGEQ loop (the "
+                         "exhaustive BM25 oracle with --ranked) and verify "
                          "the batched results against it")
     ap.add_argument("--seed", type=int, default=0)
     return ap
@@ -124,6 +149,8 @@ def run(args) -> dict:
     n_postings = sum(len(l) for l in corpus)
     print(f"[serve] corpus: {args.n_lists} lists, {n_postings:,} postings "
           f"({obs.now()-t0:.1f}s)")
+    if args.ranked:
+        return run_ranked(args, rng, corpus, n_postings)
 
     t0 = obs.now()
     idx = build_partitioned_index(corpus, "optimal", codecs=cfg.codec_policy)
@@ -192,6 +219,101 @@ def run(args) -> dict:
         "qps": len(queries) / wall,
         "batch_p50_s": _percentile(lat, 50),
         "batch_p99_s": _percentile(lat, 99),
+    }
+
+
+def run_ranked(args, rng, corpus, n_postings: int) -> dict:
+    """The ``--ranked`` path: batched BM25 top-k over the freq arena.
+
+    Keys: ``index``, ``engine``, ``queries``, ``results``, ``n_postings``,
+    ``freqs_s`` (the tf generator), ``build_s`` (index + arena with its
+    ranked sidecar), ``bpi``, ``arena_device_bytes`` (None off the device
+    backend), ``qps``, ``batch_p50_s``, ``batch_p99_s``, ``oracle_s`` (per
+    query, None without ``--compare-scalar``).
+    """
+    from ..ranked.bm25 import exhaustive_topk
+
+    cfg = args.cfg
+    t0 = obs.now()
+    freqs = make_freqs(rng, corpus)
+    t_freqs = obs.now() - t0
+    t0 = obs.now()
+    idx = build_partitioned_index(
+        corpus, "optimal", freqs=freqs, codecs=cfg.codec_policy
+    )
+    # includes the freq transcode + block-max sidecar
+    arena = idx.arena_for(cfg.codec_policy)
+    t_build = obs.now() - t0
+    print(f"[serve] ranked index: {idx.bits_per_int():.2f} bpi docIDs + "
+          f"{idx.freq_payload.size * 8 / max(int(idx.list_sizes.sum()), 1):.2f} "
+          f"bpi freqs; arena {arena.nbytes() / 1e6:.1f} MB "
+          f"(freqs {t_freqs:.1f}s, build {t_build:.1f}s)")
+
+    queries = [
+        [int(t) for t in q]
+        for q in make_queries(rng, args.n_lists, args.queries, args.arity)
+    ]
+    engine = make_topk_engine(idx, cfg)
+    dev_bytes = None
+    if engine.device is not None:
+        dev_bytes = arena.device_nbytes(engine.device)
+    where = engine.device if engine.device is not None else "host"
+    print(f"[serve] ranked arena ({cfg.codec_policy}): {arena.n_blocks:,} "
+          f"blocks" + (f", {dev_bytes/1e6:.1f} MB on {where}"
+                       if dev_bytes is not None else ""))
+    t0 = obs.now()
+    engine.topk_batch(queries[: args.batch], args.topk)  # warm mirror + cache
+    print(f"[serve] warm-up batch: {obs.now()-t0:.1f}s (flat mirror"
+          + (", impact mirror" if engine.resident == "mirror" else "") + ")")
+
+    t0 = obs.now()
+    results, lat = [], []
+    for i in range(0, len(queries), args.batch):
+        with obs.timer("serve_batch_ms", path="ranked") as bt:
+            results.extend(
+                engine.topk_batch(queries[i : i + args.batch], args.topk)
+            )
+        lat.append(bt.elapsed_s)
+    wall = obs.now() - t0
+    sizes = [len(queries[i : i + args.batch])
+             for i in range(0, len(queries), args.batch)]
+    per_q = [l / max(s, 1) for l, s in zip(lat, sizes)]
+    print(f"[serve] ranked top-{args.topk} ({engine.backend}/"
+          f"{engine.resident} on {where}, batch={args.batch}): "
+          f"{len(queries)/wall:,.0f} q/s, "
+          f"{wall/len(queries)*1e3:.3f} ms/query avg")
+    print(f"[serve] batch latency: {_latency_line(lat, per_q)}")
+    print(f"[serve] engine stats: {dict(engine.stats)}")
+
+    oracle_s = None
+    if args.compare_scalar:
+        n_check = min(len(queries), 64)
+        t0 = obs.now()
+        want = exhaustive_topk(idx, queries[:n_check], args.topk)
+        dt = obs.now() - t0
+        for q, (gd, gs), (wd, ws) in zip(queries, results, want):
+            assert np.array_equal(gd, wd) and np.array_equal(gs, ws), (
+                f"top-k mismatch on query {q}"
+            )
+        oracle_s = dt / n_check
+        speedup = oracle_s / (wall / len(queries))
+        print(f"[serve] exhaustive oracle: {dt/n_check*1e3:.2f} ms/query "
+              f"over {n_check} queries -> block-max speedup {speedup:.1f}x, "
+              f"identical top-k")
+    return {
+        "index": idx,
+        "engine": engine,
+        "queries": queries,
+        "results": results,
+        "n_postings": n_postings,
+        "freqs_s": t_freqs,
+        "build_s": t_build,
+        "bpi": idx.bits_per_int(),
+        "arena_device_bytes": dev_bytes,
+        "qps": len(queries) / wall,
+        "batch_p50_s": _percentile(lat, 50),
+        "batch_p99_s": _percentile(lat, 99),
+        "oracle_s": oracle_s,
     }
 
 

@@ -1,7 +1,7 @@
 """repro_torch.obs -- counters and span timing (off by default).
 
 Arm with ``REPRO_OBS=1`` or ``obs.enable()``.  Counterpart of the subset of
-``repro.obs`` the boolean-AND path calls; gauges, the trace ring, the
+``repro.obs`` the boolean-AND and ranked paths call; the trace ring, the
 exporters and the HTTP server come with the serving slice.
 """
 
@@ -9,12 +9,14 @@ from .metrics import (
     REGISTRY,
     Counter,
     CounterDict,
+    Gauge,
     Histogram,
     Registry,
     count,
     enable,
     enabled,
     reset,
+    set_gauge,
 )
 from .trace import NULL_SPAN, Span, Timer, now, span, timer
 
@@ -22,6 +24,7 @@ __all__ = [
     "REGISTRY",
     "Counter",
     "CounterDict",
+    "Gauge",
     "Histogram",
     "NULL_SPAN",
     "Registry",
@@ -32,6 +35,7 @@ __all__ = [
     "enabled",
     "now",
     "reset",
+    "set_gauge",
     "span",
     "timer",
 ]

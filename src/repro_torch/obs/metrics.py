@@ -1,7 +1,7 @@
 """Process-local metrics registry: counters and histograms.
 
 Counterpart of the subset of ``repro/obs/metrics.py`` the boolean-AND
-path uses (gauges and the bucketed exporters come with the serving
+and ranked paths use (the bucketed exporters come with the serving
 slice).  Zero-dependency (stdlib only).  The whole layer is off by
 default: the ``REPRO_OBS`` environment variable (or :func:`enable`) arms
 it, and every instrumentation helper (:func:`count`, ``CounterDict``)
@@ -23,6 +23,7 @@ import threading
 __all__ = [
     "Counter",
     "CounterDict",
+    "Gauge",
     "Histogram",
     "Registry",
     "REGISTRY",
@@ -30,6 +31,7 @@ __all__ = [
     "enable",
     "enabled",
     "reset",
+    "set_gauge",
 ]
 
 _ENABLED = os.environ.get("REPRO_OBS", "0") not in ("", "0", "false", "off")
@@ -66,6 +68,26 @@ class Counter:
             self._value += n
 
     add = inc
+
+    @property
+    def value(self):
+        return self._value
+
+
+class Gauge:
+    """Last-write-wins scalar (the ranked engine's theta trajectory)."""
+
+    __slots__ = ("name", "labels", "_value", "_lock")
+
+    def __init__(self, name: str, labels: tuple = ()):
+        self.name = name
+        self.labels = labels
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def set(self, v) -> None:
+        with self._lock:
+            self._value = v
 
     @property
     def value(self):
@@ -136,6 +158,9 @@ class Registry:
     def counter(self, name: str, **labels) -> Counter:
         return self._get(Counter, name, labels)
 
+    def gauge(self, name: str, **labels) -> Gauge:
+        return self._get(Gauge, name, labels)
+
     def histogram(self, name: str, **labels) -> Histogram:
         return self._get(Histogram, name, labels)
 
@@ -154,6 +179,12 @@ def count(name: str, n=1, **labels) -> None:
     """Increment a counter iff the layer is armed; no-op constant otherwise."""
     if _ENABLED:
         REGISTRY.counter(name, **labels).inc(n)
+
+
+def set_gauge(name: str, v, **labels) -> None:
+    """Set a gauge iff the layer is armed."""
+    if _ENABLED:
+        REGISTRY.gauge(name, **labels).set(v)
 
 
 def reset() -> None:

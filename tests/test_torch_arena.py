@@ -117,9 +117,23 @@ def test_device_ok_false_when_keys_overflow_int32():
 
 
 def test_index_with_freqs_waits_for_the_ranked_slice():
+    """The ranked slice has landed: an index with freqs gets an arena with
+    the reference's ranked sidecar (it used to raise NotImplementedError),
+    and the docID half of that arena is unchanged by the sidecar."""
     corpus = make_corpus(np.random.default_rng(4), n_lists=2, min_len=200,
                          max_len=400)
     freqs = make_freqs(np.random.default_rng(5), corpus)
     idx = port_build(corpus, "optimal", freqs=freqs)
-    with pytest.raises(NotImplementedError, match="ranked slice"):
-        idx.arena_for("svb")
+    ref = ref_build(corpus, "optimal", freqs=freqs)
+    got, want = idx.arena_for("svb"), ref.arena_for("svb")
+    assert_same_arena(got, want)
+    for k in ("freq_lens", "freq_data", "norm_q", "block_max_q", "idf",
+              "list_ub", "norm_table"):
+        g, w = getattr(got.ranked, k), getattr(want.ranked, k)
+        assert g.dtype == w.dtype and np.array_equal(g, w), k
+    plain = port_build(corpus, "optimal").arena_for("svb")
+    assert plain.ranked is None
+    for k in HOST_FIELDS:
+        g, w = getattr(got, k), getattr(plain, k)
+        assert (g is None and w is None) or np.array_equal(g, w), k
+    assert got.nbytes() == plain.nbytes() + got.ranked.nbytes()

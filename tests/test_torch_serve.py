@@ -55,3 +55,36 @@ def test_serve_default_device_needs_cuda():
     assert proc.returncode != 0
     assert "CUDA" in proc.stderr
     assert "batched AND" not in proc.stdout
+
+
+RANKED = ["--ranked", "--n-lists", "12", "--min-len", "300", "--max-len",
+          "4000", "--queries", "32", "--batch", "16", "--seed", "2"]
+
+
+@pytest.mark.parametrize("resident", ["kernel", "mirror"])
+def test_serve_ranked_cpu_compare_scalar(resident, capsys):
+    """--ranked serves BM25 top-k and --compare-scalar holds every result to
+    the exhaustive oracle (identical docIDs and scores)."""
+    args = serve.parse_args(RANKED + ["--resident", resident, "--device",
+                                      "cpu", "--compare-scalar"])
+    assert args.cfg.resident == resident
+    got = serve.run(args)
+    out = capsys.readouterr().out
+    assert "identical top-k" in out and f"torch/{resident}" in out
+    assert got["engine"].resident == resident
+    assert len(got["results"]) == 32 and got["oracle_s"] > 0
+    assert all(len(d) == 10 for d, _ in got["results"])
+    assert got["arena_device_bytes"] == got["engine"].arena.device_nbytes("cpu")
+
+
+def test_serve_ranked_default_device_needs_cuda():
+    if __import__("torch").cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *RANKED],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr
+    assert "ranked top-" not in proc.stdout
