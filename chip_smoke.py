@@ -16,7 +16,16 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    to 0 just before and read just after; the batched answers are checked
    against the port's scalar NextGEQ loop, and two batches are traced with
    ``torch.profiler`` (device time per kernel against the wall time);
-4. ranked   -- ``serve --ranked --topk 10 --resident kernel`` over the same
+4. index build -- the boolean path's corpus, made again from its seed,
+   through the two device partitioners with the launch counts set to 0
+   just before and read just after: ``build_partitioned_index(...,
+   partitioner=optimal_partitioning_blocked, codecs="auto")`` (the
+   ``gain_scan`` kernel) must equal the boolean path's index, built by the
+   host ``optimal_partitioning``, array for array; and
+   ``optimal_partitioning_via_scan`` (the ``partition_scan`` kernel) must
+   give the host's endpoints on every list.  The wall seconds of the three
+   partitioners are printed;
+5. ranked   -- ``serve --ranked --topk 10 --resident kernel`` over the same
    full-size corpus with its term frequencies, 512 queries of arity 2 in
    batches of 64; then 2 batches through ``resident="mirror"`` (which
    scores the whole arena once) and ``contributions()`` on 4,096 (term,
@@ -25,12 +34,13 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    read just after.  The top-k of 64 queries is held to ``exhaustive_topk``,
    the mirror's to the kernel residency's, the contributions to the host
    path, all exactly; two batches are traced as in phase 3;
-5. kernels  -- each kernel against its plain PyTorch version on the card,
-   at the main paths' shapes, over the arenas they built (integer
-   contracts and the f32 BM25 contract: zero mismatches allowed), timed
-   with CUDA events beside its bound (bytes moved over the card's memory
-   rate);
-6. the ``kernels`` JSON line, then the result line.
+6. kernels  -- each kernel against its plain PyTorch version on the card,
+   at the main paths' shapes, over the arenas and corpus they built
+   (integer contracts and the f32 BM25 contract: zero mismatches allowed),
+   timed with CUDA events beside its bound (bytes moved over the card's
+   memory rate, or for ``partition_scan`` its chain of dependent
+   operations over the card's clock);
+7. the ``kernels`` JSON line, then the result line.
 
 Phase 2 also reads the PTX of the two libraries that evaluate the f32
 BM25 contract and fails on a contracted multiply-add (``fma.rn.f32``) or
@@ -43,6 +53,7 @@ CUDA card, or if the port's sources are not beside this script.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -70,7 +81,7 @@ MIRROR_BATCHES = 2  # ranked batches served through resident="mirror"
 CONTRIB_PAIRS = 4096  # (term, doc) pairs through contributions()
 PROBE_CURSORS = 1 << 20  # bm25_score_probe cursors held to the plain version
 LIBS = ["vbyte_decode", "ef_search", "bm25_score", "blockmax_pivot",
-        "pivot_score"]
+        "pivot_score", "gain_scan", "partition_scan"]
 # the libraries that evaluate the f32 BM25 contract, and what their PTX
 # must not hold: a contracted multiply-add or an approximate division
 F32_LIBS = ["bm25_score", "pivot_score"]
@@ -80,6 +91,15 @@ CHECK_QUERIES = 64  # batched answers checked against the scalar loop
 SEARCH_CURSORS = 1 << 20  # decode_search cursors held to the plain version
 PROFILE_BATCHES = 2  # batches traced by torch.profiler
 PLAIN_CHUNK = 1 << 19  # cursors (rows) per call of a plain version
+# the longest gain_scan launch the range guard admits (40 n < 2^31), cut to
+# whole 1024-element blocks: 52,428 blocks, the carry's longest chain
+GUARD_LAUNCH = 53_686_272
+# partition_scan's longest chain per step (csrc/partition_scan.cu): g + d,
+# g > mx, the select of new_mx, g - new_mx, two selects of the next g; each
+# a dependent integer operation of 4 cycles on Hopper
+SCAN_CHAIN_OPS = 6
+SCAN_OP_CYCLES = 4
+N_KERNELS = 9
 DEVICE = "cuda"
 
 
@@ -97,6 +117,19 @@ def card_line() -> str:
     if out.returncode != 0 or not out.stdout.strip():
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (``nvidia-smi clocks.max.sm``), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    try:
+        return float(out.stdout.strip().splitlines()[0]) * 1e6
+    except (ValueError, IndexError):
+        fail(f"nvidia-smi gave no SM clock: {out.stdout!r} {out.stderr!r}")
 
 
 def event_ms(fn, reps: int) -> float:
@@ -243,6 +276,18 @@ def run_main_path(n_lists, torch, serve, counters, QueryEngine):
     return res, ef_engine, launches
 
 
+def span_ms() -> dict:
+    """Summed wall ms of each ``repro_torch.obs`` span since its reset."""
+    from repro_torch import obs
+
+    spans = {}
+    for (kind, name, labels), m in obs.REGISTRY.items():
+        if kind == "Histogram" and name == "span_ms":
+            span = dict(labels).get("span")
+            spans[span] = spans.get(span, 0.0) + m.sum
+    return spans
+
+
 def profile_batches(torch, serve_batch, queries, card, label) -> None:
     """Where a batch's time goes: device time per kernel from
     ``torch.profiler`` against the wall time, and the host spans of
@@ -270,11 +315,7 @@ def profile_batches(torch, serve_batch, queries, card, label) -> None:
         if ev.device_type != DeviceType.CPU and ev.self_device_time_total > 0:
             name = ev.key[:72]
             dev[name] = dev.get(name, 0.0) + ev.self_device_time_total / 1e3
-    spans = {}
-    for (kind, name, labels), m in obs.REGISTRY.items():
-        if kind == "Histogram" and name == "span_ms":
-            span = dict(labels).get("span")
-            spans[span] = spans.get(span, 0.0) + m.sum
+    spans = span_ms()
     busy = sum(dev.values())
     top = dict(sorted(dev.items(), key=lambda kv: -kv[1])[:8])
     print(f"[chip_smoke] {label} profile over {len(batches)} batches: wall "
@@ -287,22 +328,29 @@ def profile_batches(torch, serve_batch, queries, card, label) -> None:
 
 
 def kernel_row(launches, card, name, src, replaces, mism, err, ms, plain_ms,
-               nbytes, what) -> dict:
+               nbytes, what, ops_bound=None, note=None) -> dict:
     """Print one kernel's check and return its row of the ``kernels`` line;
-    fails on any mismatch against the plain version."""
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    fails on any mismatch against the plain version.
+
+    The bound is ``nbytes`` over the memory rate, or ``ops_bound`` = (ms,
+    how it was counted) for a kernel bound by its operations; ``note``
+    adds keys to the row."""
+    if ops_bound is None:
+        bound_ms, bound_by = nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+        how = f"{nbytes/1e6:.1f} MB at {HBM_BYTES_PER_S/1e12:.2f} TB/s"
+    else:
+        (bound_ms, how), bound_by = ops_bound, "operations"
     print(f"[chip_smoke] {name}: {what}: {mism} mismatches, kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({nbytes/1e6:.1f} MB at "
-          f"{HBM_BYTES_PER_S/1e12:.2f} TB/s) [{card}]", flush=True)
+          f"bound {bound_ms:.4f} ms ({how}) [{card}]", flush=True)
     if mism:
         fail(f"{name}: {mism} mismatches against its plain version")
     return {
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": launches[name], "launches_main_path": launches[name],
         "mismatches": mism, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-        "library_ms": None,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, **(note or {}),
     }
 
 
@@ -635,6 +683,159 @@ def check_ranked_kernels(torch, rres, launches, card):
     return rows_out
 
 
+def serve_arg(flag: str) -> int:
+    """An integer argument of the boolean path's serve command."""
+    return int(SERVE_ARGS[SERVE_ARGS.index(flag) + 1])
+
+
+def run_build_path(n_lists, res, torch, counters, card):
+    """Phase 4; returns (the corpus, launches)."""
+    from repro_torch import obs
+    from repro_torch.core.costs import gaps_from_sorted
+    from repro_torch.core.index import build_partitioned_index
+    from repro_torch.core.partition import optimal_partitioning_via_scan
+    from repro_torch.data.postings import make_corpus
+    from repro_torch.kernels.gain_scan.ops import optimal_partitioning_blocked
+
+    idx = res["index"]
+    t0 = time.perf_counter()
+    corpus = make_corpus(np.random.default_rng(serve_arg("--seed")),
+                         n_lists=n_lists, min_len=serve_arg("--min-len"),
+                         max_len=serve_arg("--max-len"))
+    if not np.array_equal([len(seq) for seq in corpus], idx.list_sizes):
+        fail("the corpus made again from its seed has other list sizes than "
+             "the boolean path's index")
+    print(f"[chip_smoke] index build: the boolean path's corpus made again "
+          f"from its seed, {len(corpus)} lists, "
+          f"{int(idx.list_sizes.sum()):,} postings "
+          f"({time.perf_counter()-t0:.1f}s)", flush=True)
+    for c in counters.values():
+        c.launches = 0
+    obs.reset()
+    obs.enable()
+    t0 = time.perf_counter()
+    blocked = build_partitioned_index(
+        corpus, partitioner=optimal_partitioning_blocked, codecs="auto")
+    blocked_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scan_P = [optimal_partitioning_via_scan(gaps_from_sorted(seq))
+              for seq in corpus]
+    scan_s = time.perf_counter() - t0
+    spans = span_ms()
+    obs.enable(False)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"[chip_smoke] index-build launches: {launches}", flush=True)
+    for k, n in launches.items():
+        if n != len(corpus):
+            fail(f"kernel {k} launched {n} times for {len(corpus)} lists")
+    # the device-partitioned index is the host-partitioned one
+    n_arrays = 0
+    for f in dataclasses.fields(idx):
+        want, got = getattr(idx, f.name), getattr(blocked, f.name)
+        if isinstance(want, np.ndarray):
+            n_arrays += 1
+            if got.dtype != want.dtype or not np.array_equal(got, want):
+                fail(f"index through optimal_partitioning_blocked: "
+                     f"{f.name} differs from the host-built index")
+        elif f.compare and got != want:
+            fail(f"index through optimal_partitioning_blocked: {f.name} "
+                 f"{got!r} != {want!r}")
+    # the scan's endpoints are the host's, read back from the host index
+    lpo = idx.list_part_offsets
+    for lst, P in enumerate(scan_P):
+        if not np.array_equal(P, np.cumsum(idx.sizes[lpo[lst] : lpo[lst + 1]])):
+            fail(f"optimal_partitioning_via_scan: list {lst}'s endpoints "
+                 "differ from the host partitioner's")
+    print(f"[chip_smoke] index build: optimal_partitioning_blocked's index "
+          f"equals the host-built index in all {n_arrays} arrays; "
+          f"optimal_partitioning_via_scan gives the host's endpoints on all "
+          f"{len(scan_P)} lists ({len(idx.sizes):,} partitions)", flush=True)
+    gain_s = spans.get("gain_prefix", 0.0) / 1e3
+    machine_s = spans.get("state_machine", 0.0) / 1e3
+    summary = {
+        "host_build_s": res["build_s"], "blocked_build_s": blocked_s,
+        "blocked_gain_prefix_s": gain_s, "blocked_state_machine_s": machine_s,
+        "blocked_encode_s": blocked_s - gain_s - machine_s,
+        "scan_partitioner_s": scan_s,
+        "scan_kernel_and_fetch_s": spans.get("partition_scan", 0.0) / 1e3,
+        "launches": launches, "card": card,
+    }
+    print(f"[chip_smoke] index build: {json.dumps(summary)}", flush=True)
+    return corpus, launches
+
+
+def check_build_kernels(torch, corpus, launches, card):
+    """Phase 6, the index-build kernels: gain_scan on every list and on one
+    launch at its range guard, partition_scan on the largest list, each
+    against its plain version; returns their rows of the ``kernels``
+    line."""
+    from repro_torch.core.costs import DEFAULT_F, gain_deltas_np, gaps_from_sorted
+    from repro_torch.kernels.gain_scan import kernel as gk
+    from repro_torch.kernels.gain_scan import ref as gref
+    from repro_torch.kernels.gain_scan.ops import check_range
+    from repro_torch.kernels.partition_scan import kernel as sk
+    from repro_torch.kernels.partition_scan import ref as sref
+
+    cuda = torch.device(DEVICE)
+    rows_out = []
+
+    def report(*args, **kw):
+        rows_out.append(kernel_row(launches, card, *args, **kw))
+
+    def padded(gaps):
+        """The gaps on the card, padded with gap 1 as gain_prefix pads."""
+        gp = np.ones(-(-len(gaps) // gk.BLOCK) * gk.BLOCK, np.int32)
+        gp[: len(gaps)] = gaps
+        return torch.from_numpy(gp).to(cuda)
+
+    def compare_all(got, want):
+        res = [compare(g, w) for g, w in zip(got, want)]
+        return sum(m for m, _ in res), max(e for _, e in res)
+
+    # -- gain_scan on every list, then one launch at the range guard --------
+    gaps_all = [gaps_from_sorted(seq) for seq in corpus]
+    mism, err = 0, 0
+    for gaps in gaps_all:
+        t = padded(gaps)
+        m, e = compare_all(gk.gain_scan(t), gref.gain_scan_ref(t, gk.BLOCK))
+        mism, err = mism + m, max(err, e)
+    cat = np.resize(np.concatenate(gaps_all), GUARD_LAUNCH)
+    check_range(len(cat), int(cat.sum()))
+    t = padded(cat)
+    m, e = compare_all(gk.gain_scan(t), gref.gain_scan_ref(t, gk.BLOCK))
+    ms = event_ms(lambda: gk.gain_scan(t), 20)
+    plain_ms = event_ms(lambda: gref.gain_scan_ref(t, gk.BLOCK), 2)
+    deltas = gref.vbyte_cost_bits(torch.clamp_min(t - 1, 0)) - t
+    cumsum_ms = event_ms(lambda: torch.cumsum(deltas, 0, dtype=torch.int32), 20)
+    nb = GUARD_LAUNCH // gk.BLOCK
+    report("gain_scan", "src/repro_torch/csrc/gain_scan.cu",
+           "src/repro/kernels/gain_scan/kernel.py:65", mism + m, max(err, e),
+           ms, plain_ms, GUARD_LAUNCH * 8 + nb * 8,
+           f"all {len(gaps_all)} lists, then {GUARD_LAUNCH:,} gaps of the "
+           f"corpus ({nb:,} blocks, universe {int(cat.sum()):,}) in one "
+           f"launch; torch.cumsum of its int32 deltas {cumsum_ms:.4f} ms",
+           note={"cumsum_ms": cumsum_ms})
+
+    # -- partition_scan on the largest list --------------------------------
+    big = int(np.argmax([len(g) for g in gaps_all]))
+    n = len(gaps_all[big])
+    d = torch.from_numpy(gain_deltas_np(gaps_all[big]).astype(np.int32)).to(cuda)
+    mism, err = compare_all(sk.partition_scan(d, DEFAULT_F),
+                            sref.partition_scan_ref(d, DEFAULT_F))
+    ms = event_ms(lambda: sk.partition_scan(d, DEFAULT_F), 5)
+    plain_ms = event_ms(lambda: sref.partition_scan_ref(d, DEFAULT_F), 1)
+    hz = sm_clock_hz()
+    bound_ms = n * SCAN_CHAIN_OPS * SCAN_OP_CYCLES / hz * 1e3
+    report("partition_scan", "src/repro_torch/csrc/partition_scan.cu",
+           "src/repro/core/partition.py:172", mism, err, ms, plain_ms, 0,
+           f"list {big}, {n:,} steps",
+           ops_bound=(bound_ms, f"{n:,} steps x {SCAN_CHAIN_OPS} dependent "
+                      f"ops x {SCAN_OP_CYCLES} cycles at {hz/1e6:.0f} MHz"))
+    torch.cuda.synchronize()
+    return rows_out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-lists", type=int, default=N_LISTS,
@@ -658,6 +859,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.blockmax_pivot import kernel as pk
     from repro_torch.kernels.bm25_score import kernel as bk
     from repro_torch.kernels.ef_search import kernel as efk
+    from repro_torch.kernels.gain_scan import kernel as gk
+    from repro_torch.kernels.partition_scan import kernel as psk
     from repro_torch.kernels.pivot_score import kernel as sk
     from repro_torch.kernels.vbyte_decode import kernel as vk
     from repro_torch.launch import serve
@@ -701,7 +904,12 @@ def main(argv=None) -> int:
     profile_batches(torch, res["engine"].intersect_batch, res["queries"],
                     card, "boolean")
 
-    # 4. the ranked path, counted
+    # 4. the index build through the device partitioners, counted
+    corpus, blaunches = run_build_path(
+        args.n_lists, res, torch,
+        {"gain_scan": gk.gain_scan, "partition_scan": psk.partition_scan}, card)
+
+    # 5. the ranked path, counted
     all_counters = {**counters, "bm25_score_probe": bk.bm25_score_probe,
                     "bm25_score_rows": bk.bm25_score_rows,
                     "pivot_select": pk.pivot_select,
@@ -725,15 +933,16 @@ def main(argv=None) -> int:
     profile_batches(torch, lambda b: reng.topk_batch(b, TOPK),
                     rres["queries"], card, "ranked")
 
-    # 5. each kernel against its plain version
+    # 6. each kernel against its plain version
     kernels = check_kernels(torch, res, ef_engine, launches, card)
     kernels += check_ranked_kernels(torch, rres, rlaunches, card)
-    if len(kernels) != 7:
-        fail(f"the kernels line has {len(kernels)} rows, not 7")
+    kernels += check_build_kernels(torch, corpus, blaunches, card)
+    if len(kernels) != N_KERNELS:
+        fail(f"the kernels line has {len(kernels)} rows, not {N_KERNELS}")
     print(f"[chip_smoke] all phases passed in "
           f"{time.perf_counter()-t_start:.1f}s", flush=True)
 
-    # 6. the kernels line, then the result line
+    # 7. the kernels line, then the result line
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

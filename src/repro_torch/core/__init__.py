@@ -10,6 +10,8 @@ from .partition import (
     dp_optimal,
     eps_optimal,
     optimal_partitioning,
+    optimal_partitioning_scan,
+    optimal_partitioning_via_scan,
     partitioning_cost,
     uniform_partitioning,
     unpartitioned_cost,
@@ -28,6 +30,8 @@ __all__ = [
     "gain_deltas_np",
     "gaps_from_sorted",
     "optimal_partitioning",
+    "optimal_partitioning_scan",
+    "optimal_partitioning_via_scan",
     "partitioning_cost",
     "uniform_partitioning",
     "unpartitioned_cost",

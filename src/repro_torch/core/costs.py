@@ -11,13 +11,15 @@ The paper's framework needs, per element, the cost in bits under
   * ``B`` -- the characteristic bit-vector: each element contributes its gap
     to the bitmap length, so ``B_k = gap_k`` bits.
 
-Counterpart of ``repro/core/costs.py`` (its numpy half): these are the
-costs the host partitioners and the index build use.
+Counterpart of ``repro/core/costs.py``: the numpy half is what the host
+partitioners and the index build use; the torch half is the elementwise
+counterpart of its jnp half (int32 results, the same bit tricks).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # Fixed per-partition header cost, in bits (paper section 4: F = 64).
 DEFAULT_F = 64
@@ -74,3 +76,52 @@ def gain_deltas_np(gaps: np.ndarray) -> np.ndarray:
     """Per-element gain increments: E_k - B_k (Definition 1 of the paper)."""
     e, b = elem_costs_np(gaps)
     return e - b
+
+
+# --------------------------------------------------------------------------
+# torch versions of the jnp half (int32 domain; gaps < 2**31).  torch's
+# uint32 supports few operators, so the reference's uint32 shifts and masks
+# run in int64 held to 32 bits with ``& 0xFFFFFFFF``.
+# --------------------------------------------------------------------------
+
+_U32 = 0xFFFFFFFF
+
+
+def bit_length_torch(x: torch.Tensor) -> torch.Tensor:
+    x = x.long() & _U32
+    zero = torch.zeros_like(x)
+    nbits = 32 - torch.clamp(
+        torch.where(x == 0, 32, zero) + torch.where(x > 0, _clz32(x), zero),
+        0,
+        32,
+    )
+    return torch.clamp_min(nbits, 1).int()
+
+
+def _clz32(x: torch.Tensor) -> torch.Tensor:
+    """Count leading zeros of uint32 via bit smearing + popcount."""
+    x = x.long() & _U32
+    x = x | (x >> 1)
+    x = x | (x >> 2)
+    x = x | (x >> 4)
+    x = x | (x >> 8)
+    x = x | (x >> 16)
+    return (32 - _popcount32(x)).int()
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    x = x.long() & _U32
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (((x * 0x01010101) & _U32) >> 24).int()
+
+
+def vbyte_cost_bits_torch(values: torch.Tensor) -> torch.Tensor:
+    bits = bit_length_torch(values)
+    return (8 * ((bits + 6) // 7)).int()
+
+
+def gain_deltas_torch(gaps: torch.Tensor) -> torch.Tensor:
+    e = vbyte_cost_bits_torch(torch.clamp_min(gaps - 1, 0))
+    return (e - gaps).int()

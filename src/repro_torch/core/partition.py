@@ -3,6 +3,10 @@
 * ``optimal_partitioning``      -- the paper's Θ(n)-time / O(1)-space exact
                                    algorithm (Fig. 4 + update Fig. 5 + close
                                    Fig. 6), faithful to the pseudocode.
+* ``optimal_partitioning_scan`` -- the same state machine as a scan (one step
+                                   per element, O(1) int32 carry), run by the
+                                   CUDA kernel ``partition_scan`` on the card;
+                                   ``optimal_partitioning_via_scan`` wraps it.
 * ``dp_optimal``                -- O(n^2) exact dynamic program; the oracle the
                                    tests validate optimality against.
 * ``eps_optimal``               -- the (1+eps)-approximate sparsified DP of
@@ -18,14 +22,18 @@ partitioning P = [p_1 < ... < p_m = n] of gap array ``gaps`` costs
 
 with E(l, r) = sum of VByte bits of (gap_k - 1) and B(l, r) = sum of gap_k.
 
-Counterpart of the host half of ``repro/core/partition.py``; the scan
-formulation of the same state machine arrives with the device partitioner.
+Counterpart of ``repro/core/partition.py``; its ``lax.scan`` becomes the
+CUDA kernel ``kernels/partition_scan``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from .. import obs
+from ..api import resolve_device
+from ..kernels.partition_scan.kernel import partition_scan
 from .costs import DEFAULT_F, elem_costs_np, gain_deltas_np
 
 
@@ -111,6 +119,57 @@ def optimal_partitioning(gaps: np.ndarray, F: int = DEFAULT_F) -> np.ndarray:
         out.append(n)
     return np.asarray(out, dtype=np.int64)
 
+
+# ==========================================================================
+# Same state machine as a scan on the card.
+# ==========================================================================
+
+def optimal_partitioning_scan(deltas, F: int = DEFAULT_F, device="cuda"):
+    """Scan version.  Input: per-element gain deltas (int32).
+
+    Returns (carry, boundary_mask, boundary_pos) as tensors on ``device``
+    (the card unless the caller passes ``device="cpu"``): carry [7] int32 is
+    (T, i, j, g, mn, mx, k) after the last step; for step k, if the state
+    machine emitted a partition boundary, mask[k] = True and pos[k] is the
+    boundary.  The final close() boundaries come from the carry, appended by
+    the host-side wrapper ``optimal_partitioning_via_scan``.
+    """
+    d = torch.as_tensor(deltas).to(resolve_device(device), torch.int32)
+    return partition_scan(d.contiguous(), F)
+
+
+def optimal_partitioning_via_scan(gaps: np.ndarray, F: int = DEFAULT_F,
+                                  device="cuda") -> np.ndarray:
+    """Host wrapper: deltas on the host, the scan on ``device``, one fetch,
+    then close() on the final carry (the ``partition_scan`` span of
+    ``repro_torch.obs`` times the scan and the fetch)."""
+    deltas = gain_deltas_np(gaps)
+    n = int(deltas.shape[0])
+    if n == 0:
+        return np.array([0], dtype=np.int64)
+    with obs.span("partition_scan"):
+        carry, mask, pos = (
+            t.cpu().numpy()
+            for t in optimal_partitioning_scan(deltas, F=F, device=device)
+        )
+    P = pos[np.flatnonzero(mask)].tolist()
+    # close() on final state
+    T, i, j, g, mn, mx, _k = carry.tolist()
+    if mx > F and mx - g > F:
+        P.append(i)
+        g, mx, mn = g - mx, 0, g - mx
+    if mn < -F and mn - g < -F:
+        P.append(j)
+        g, mn, mx = g - mn, 0, g - mn
+    P.append(n)
+    out, last = [], 0
+    for p in P:
+        if p > last:
+            out.append(p)
+            last = p
+    if not out or out[-1] != n:
+        out.append(n)
+    return np.asarray(out, dtype=np.int64)
 
 
 # ==========================================================================
