@@ -94,11 +94,14 @@ PLAIN_CHUNK = 1 << 19  # cursors (rows) per call of a plain version
 # the longest gain_scan launch the range guard admits (40 n < 2^31), cut to
 # whole 1024-element blocks: 52,428 blocks, the carry's longest chain
 GUARD_LAUNCH = 53_686_272
-# partition_scan's longest chain per step (csrc/partition_scan.cu): g + d,
-# g > mx, the select of new_mx, g - new_mx, two selects of the next g; each
-# a dependent integer operation of 4 cycles on Hopper
-SCAN_CHAIN_OPS = 6
+# partition_scan's bound: the shortest chain any branch-free step allows.
+# Whether a step emits depends on the carried state, and the next state on
+# that decision: one compare, then one select, per step.  Each is a
+# fixed-latency integer operation, and the sm_90a SASS schedule leaves no
+# less than 4 cycles between one and its first use (scan_sass prints it).
+SCAN_CHAIN_OPS = 2
 SCAN_OP_CYCLES = 4
+SCAN_LOOP_STEPS = 16  # steps per pass of partition_scan.cu's main loop
 N_KERNELS = 9
 DEVICE = "cuda"
 
@@ -689,11 +692,14 @@ def serve_arg(flag: str) -> int:
 
 
 def run_build_path(n_lists, res, torch, counters, card):
-    """Phase 4; returns (the corpus, launches)."""
+    """Phase 4; returns (the gaps of every list, launches)."""
     from repro_torch import obs
     from repro_torch.core.costs import gaps_from_sorted
     from repro_torch.core.index import build_partitioned_index
-    from repro_torch.core.partition import optimal_partitioning_via_scan
+    from repro_torch.core.partition import (
+        optimal_partitioning,
+        optimal_partitioning_via_scan,
+    )
     from repro_torch.data.postings import make_corpus
     from repro_torch.kernels.gain_scan.ops import optimal_partitioning_blocked
 
@@ -717,11 +723,21 @@ def run_build_path(n_lists, res, torch, counters, card):
     blocked = build_partitioned_index(
         corpus, partitioner=optimal_partitioning_blocked, codecs="auto")
     blocked_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    scan_P = [optimal_partitioning_via_scan(gaps_from_sorted(seq))
-              for seq in corpus]
-    scan_s = time.perf_counter() - t0
     spans = span_ms()
+    obs.enable(False)
+    # the three partitioners over the same gaps, list by list: the host loop
+    # here, the blocked one from its spans in the build above, the scan here
+    gaps_all = [gaps_from_sorted(seq) for seq in corpus]
+    t0 = time.perf_counter()
+    for gaps in gaps_all:
+        optimal_partitioning(gaps)
+    host_s = time.perf_counter() - t0
+    obs.reset()
+    obs.enable()
+    t0 = time.perf_counter()
+    scan_P = [optimal_partitioning_via_scan(gaps) for gaps in gaps_all]
+    scan_s = time.perf_counter() - t0
+    scan_spans = span_ms()
     obs.enable(False)
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}
@@ -754,23 +770,89 @@ def run_build_path(n_lists, res, torch, counters, card):
     gain_s = spans.get("gain_prefix", 0.0) / 1e3
     machine_s = spans.get("state_machine", 0.0) / 1e3
     summary = {
-        "host_build_s": res["build_s"], "blocked_build_s": blocked_s,
+        "host_partitioner_s": host_s,
+        "blocked_partitioner_s": gain_s + machine_s,
         "blocked_gain_prefix_s": gain_s, "blocked_state_machine_s": machine_s,
-        "blocked_encode_s": blocked_s - gain_s - machine_s,
         "scan_partitioner_s": scan_s,
-        "scan_kernel_and_fetch_s": spans.get("partition_scan", 0.0) / 1e3,
+        "scan_kernel_and_fetch_s": scan_spans.get("partition_scan", 0.0) / 1e3,
+        "host_build_s": res["build_s"], "blocked_build_s": blocked_s,
         "launches": launches, "card": card,
     }
     print(f"[chip_smoke] index build: {json.dumps(summary)}", flush=True)
-    return corpus, launches
+    return gaps_all, launches
 
 
-def check_build_kernels(torch, corpus, launches, card):
+def scan_sass() -> str:
+    """What the compiler emitted for partition_scan's main loop, read from
+    ``cuobjdump -sass`` of the built library: instructions, the longest
+    chain of dependent instructions through the carried registers, and the
+    issue cycles of the schedule's stall counts, each per step; and the
+    least issue distance from a fixed-latency result to its first use."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    try:
+        exe = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+        proc = subprocess.run(
+            [exe, "-sass", _build.library_path("partition_scan")],
+            capture_output=True, text=True)
+    except (OSError, RuntimeError) as e:
+        return f"not measured ({e})"
+    if proc.returncode:
+        return f"not measured ({exe} -sass: {proc.stderr.strip()[:200]})"
+    lines = proc.stdout.splitlines()
+    code = []  # (address, instruction, stall cycles from the control word)
+    for a, b in zip(lines, lines[1:]):
+        m = re.match(r"\s*/\*([0-9a-f]{4})\*/\s+(.*?)\s*;\s*/\* 0x", a)
+        c = re.search(r"/\* (0x[0-9a-f]{16}) \*/", b)
+        if m and c:
+            code.append((int(m.group(1), 16), m.group(2),
+                         max((int(c.group(1), 16) >> 41) & 0xF, 1)))
+    back = [(a, int(t, 16)) for a, x, _ in code
+            for t in re.findall(r"BRA (0x[0-9a-f]+)", x) if int(t, 16) < a]
+    if not back:
+        return "not measured (no backward branch in the SASS)"
+    end, top = max(back, key=lambda e: e[0] - e[1])
+    depth, written, live_in, ready = {}, set(), set(), {}
+    cycle, least = 0, None
+    for a, x, stall in code:
+        if not top <= a <= end:
+            continue
+        m = re.match(r"@!?(P\d+)\s+(.*)", x)
+        guard, x = (m.group(1), m.group(2)) if m else (None, x)
+        op, _, rest = x.partition(" ")
+        args = [r.strip() for r in rest.split(",")] if rest else []
+        n_dst = (0 if op.startswith(("ST", "BRA", "EXIT")) else
+                 2 if op.startswith(("ISETP", "PLOP3")) else 1)
+        dst = [r for o in args[:n_dst] for r in re.findall(r"\b(?:R|P)\d+\b", o)]
+        src = [r for o in args[n_dst:] for r in re.findall(r"\b(?:U?R|U?P)\d+\b", o)]
+        if guard:  # a predicated write keeps the old value otherwise
+            src += [guard] + dst
+        live_in.update(r for r in src if r not in written)
+        for r in src:
+            if r in ready and not ready[r][1].startswith(("LD", "S2R")):
+                gap = cycle - ready[r][0]
+                least = gap if least is None else min(least, gap)
+        d = 1 + max((depth.get(r, 0) for r in src), default=0)
+        for r in dst:
+            depth[r], ready[r] = d, (cycle, op)
+        written.update(dst)
+        cycle += stall
+    n_ins = sum(1 for a, _, _ in code if top <= a <= end)
+    chain = max(depth.get(r, 0) for r in live_in)
+    return (f"{n_ins / SCAN_LOOP_STEPS:.2f} instructions, a carried chain of "
+            f"{chain / SCAN_LOOP_STEPS:.2f} dependent instructions and "
+            f"{cycle / SCAN_LOOP_STEPS:.2f} issue cycles per step; least "
+            f"issue distance to a first use {least} cycles")
+
+
+def check_build_kernels(torch, gaps_all, launches, card):
     """Phase 6, the index-build kernels: gain_scan on every list and on one
     launch at its range guard, partition_scan on the largest list, each
     against its plain version; returns their rows of the ``kernels``
     line."""
-    from repro_torch.core.costs import DEFAULT_F, gain_deltas_np, gaps_from_sorted
+    from repro_torch.core.costs import DEFAULT_F, gain_deltas_np
     from repro_torch.kernels.gain_scan import kernel as gk
     from repro_torch.kernels.gain_scan import ref as gref
     from repro_torch.kernels.gain_scan.ops import check_range
@@ -794,7 +876,6 @@ def check_build_kernels(torch, corpus, launches, card):
         return sum(m for m, _ in res), max(e for _, e in res)
 
     # -- gain_scan on every list, then one launch at the range guard --------
-    gaps_all = [gaps_from_sorted(seq) for seq in corpus]
     mism, err = 0, 0
     for gaps in gaps_all:
         t = padded(gaps)
@@ -827,11 +908,14 @@ def check_build_kernels(torch, corpus, launches, card):
     plain_ms = event_ms(lambda: sref.partition_scan_ref(d, DEFAULT_F), 1)
     hz = sm_clock_hz()
     bound_ms = n * SCAN_CHAIN_OPS * SCAN_OP_CYCLES / hz * 1e3
+    sass = scan_sass()
     report("partition_scan", "src/repro_torch/csrc/partition_scan.cu",
            "src/repro/core/partition.py:172", mism, err, ms, plain_ms, 0,
-           f"list {big}, {n:,} steps",
+           f"list {big}, {n:,} steps, {ms * 1e-3 * hz / n:.2f} cycles per "
+           f"step; its SASS: {sass}",
            ops_bound=(bound_ms, f"{n:,} steps x {SCAN_CHAIN_OPS} dependent "
-                      f"ops x {SCAN_OP_CYCLES} cycles at {hz/1e6:.0f} MHz"))
+                      f"ops x {SCAN_OP_CYCLES} cycles at {hz/1e6:.0f} MHz"),
+           note={"sass": sass})
     torch.cuda.synchronize()
     return rows_out
 
@@ -905,7 +989,7 @@ def main(argv=None) -> int:
                     card, "boolean")
 
     # 4. the index build through the device partitioners, counted
-    corpus, blaunches = run_build_path(
+    build_gaps, blaunches = run_build_path(
         args.n_lists, res, torch,
         {"gain_scan": gk.gain_scan, "partition_scan": psk.partition_scan}, card)
 
@@ -936,7 +1020,7 @@ def main(argv=None) -> int:
     # 6. each kernel against its plain version
     kernels = check_kernels(torch, res, ef_engine, launches, card)
     kernels += check_ranked_kernels(torch, rres, rlaunches, card)
-    kernels += check_build_kernels(torch, corpus, blaunches, card)
+    kernels += check_build_kernels(torch, build_gaps, blaunches, card)
     if len(kernels) != N_KERNELS:
         fail(f"the kernels line has {len(kernels)} rows, not {N_KERNELS}")
     print(f"[chip_smoke] all phases passed in "

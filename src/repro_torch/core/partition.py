@@ -42,81 +42,69 @@ from .costs import DEFAULT_F, elem_costs_np, gain_deltas_np
 # ==========================================================================
 
 def optimal_partitioning(gaps: np.ndarray, F: int = DEFAULT_F) -> np.ndarray:
-    """Return partition endpoints P (strictly increasing, last == n).
+    """Return partition endpoints P (strictly increasing, last == n)."""
+    deltas = gain_deltas_np(gaps)
+    return _state_machine(deltas, F, deltas.size)
 
-    Direct transcription of the paper's pseudocode.  State:
+
+def _state_machine(deltas: np.ndarray, F: int, n: int) -> np.ndarray:
+    """The paper's O(1)-space dominating-point machine (Fig. 4, update
+    Fig. 5) over the first n per-element gain deltas; shared by
+    ``optimal_partitioning`` and the blocked partitioner.  State:
       g        gain relative to the start of the current interval
       mn, mx   min / max gain seen in the current interval
       j, i     positions achieving mn / mx (candidate dominating points
                for encoder E / encoder B respectively)
       T        amortization threshold: F for the first partition, 2F after
     """
-    deltas = gain_deltas_np(gaps)
-    n = deltas.size
-    P: list[int] = []
     if n == 0:
         return np.array([0], dtype=np.int64)
-
+    P: list[int] = []
     T = F
     i = j = 0
     g = 0
     mn = mx = 0
-
-    def update(which: str, k: int) -> None:
-        # paper Fig. 5: update(g0, g1, p0, p1)
-        nonlocal T, i, j, g, mn, mx
-        if which == "E":  # update(min, max, j, i): emit j, dominating for E
-            P.append(j)
-            T = 2 * F
-            i = k + 1
-            g = g - mn
-            mn = 0
-            mx = g
-        else:  # update(max, min, i, j): emit i, dominating for B
-            P.append(i)
-            T = 2 * F
-            j = k + 1
-            g = g - mx
-            mx = 0
-            mn = g
-
     # python ints: the same arithmetic as int(deltas[k]), without a numpy
     # scalar per step
-    for k, d in enumerate(deltas.tolist()):
+    for k, d in enumerate(deltas[:n].tolist()):
         g += d
         if d >= 0:  # g is non-decreasing at this step
             if g > mx:
-                mx = g
-                i = k + 1
+                mx, i = g, k + 1
             if mn < -T and mn - g < -2 * F:
-                update("E", k)
+                # update(min, max, j, i): emit j, dominating for E
+                P.append(j)
+                T, i, g = 2 * F, k + 1, g - mn
+                mn, mx = 0, g
         else:
             if g < mn:
-                mn = g
-                j = k + 1
+                mn, j = g, k + 1
             if mx > T and mx - g > 2 * F:
-                update("B", k)
+                # update(max, min, i, j): emit i, dominating for B
+                P.append(i)
+                T, j, g = 2 * F, k + 1, g - mx
+                mx, mn = 0, g
+    return _close(P, i, j, g, mn, mx, F, n)
 
-    # close() -- paper Fig. 6
+
+def _close(P: list, i: int, j: int, g: int, mn: int, mx: int, F: int,
+           n: int) -> np.ndarray:
+    """close() -- paper Fig. 6 -- on the machine's final state, then P as
+    strictly increasing endpoints ending at n."""
+    # after either update the other's test fails: its gap is then 0
     if mx > F and mx - g > F:
-        update("B", n)
-    if mn < -F and mn - g < -F:
-        update("E", n)
-    if g > 0:
-        P.append(n)  # update(max, min, n, j): closes with encoder B
-    else:
-        P.append(n)  # update(min, max, n, i): closes with encoder E
-
-    # P must be strictly increasing; dominating points are unique, but close()
-    # can re-emit a boundary equal to the last one when the tail is empty.
-    out = []
+        P.append(i)  # update(max, min, i, j)
+    elif mn < -F and mn - g < -F:
+        P.append(j)  # update(min, max, j, i)
+    P.append(n)  # encoder B closes when g > 0, encoder E otherwise
+    # dominating points are unique, but close() can re-emit a boundary
+    # equal to the last one when the tail is empty
+    out: list[int] = []
     last = 0
     for p in P:
         if p > last:
             out.append(p)
             last = p
-    if not out or out[-1] != n:
-        out.append(n)
     return np.asarray(out, dtype=np.int64)
 
 
@@ -152,24 +140,8 @@ def optimal_partitioning_via_scan(gaps: np.ndarray, F: int = DEFAULT_F,
             t.cpu().numpy()
             for t in optimal_partitioning_scan(deltas, F=F, device=device)
         )
-    P = pos[np.flatnonzero(mask)].tolist()
-    # close() on final state
-    T, i, j, g, mn, mx, _k = carry.tolist()
-    if mx > F and mx - g > F:
-        P.append(i)
-        g, mx, mn = g - mx, 0, g - mx
-    if mn < -F and mn - g < -F:
-        P.append(j)
-        g, mn, mx = g - mn, 0, g - mn
-    P.append(n)
-    out, last = [], 0
-    for p in P:
-        if p > last:
-            out.append(p)
-            last = p
-    if not out or out[-1] != n:
-        out.append(n)
-    return np.asarray(out, dtype=np.int64)
+    _T, i, j, g, mn, mx, _k = carry.tolist()
+    return _close(pos[np.flatnonzero(mask)].tolist(), i, j, g, mn, mx, F, n)
 
 
 # ==========================================================================

@@ -13,10 +13,12 @@
 // jnp.where logic of the reference, select for select.
 //
 // What bounds it: operations, as one dependency chain.  Every step needs
-// the g, mn and mx of the step before; the longest chain through one step
-// is g = g + d, the compare g > mx, the select of new_mx, g - new_mx and
-// two selects of the next g: 6 dependent integer operations.  The bytes
-// (4 B read, 5 B written per element) take a thousandth of that time.
+// the g, mn and mx of the step before: at least a compare and a select
+// per step.  As compiled for sm_90a, though, one step is about 35
+// instructions with a carried chain of about 7, and the single thread's
+// issue schedule, not the chain, sets its time (chip_smoke.py's scan_sass
+// reads the SASS).  The bytes (4 B read, 5 B written per element) take a
+// thousandth of that time.
 //
 // What the design does about it: one thread walks the sequence.  Nothing
 // leaves the chain: the deltas come 16 at a time as 16-byte loads issued a

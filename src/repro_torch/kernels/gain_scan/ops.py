@@ -19,8 +19,8 @@ import torch
 from ... import obs
 from ...api import resolve_device
 from ...core.costs import DEFAULT_F
+from ...core.partition import _state_machine
 from .kernel import BLOCK, gain_scan
-from .ref import gain_scan_ref
 
 
 def check_range(n: int, gap_sum: int) -> None:
@@ -34,14 +34,12 @@ def check_range(n: int, gap_sum: int) -> None:
         )
 
 
-def gain_prefix(gaps: np.ndarray, use_kernel: bool = True,
-                device="cuda"):
+def gain_prefix(gaps: np.ndarray, device="cuda"):
     """(g [n], block_min [nb], block_max [nb]) as numpy int32 arrays.
 
     The sequence is padded with gap 1 (delta 7) to a multiple of 1024; g is
     cut back to n, while block_min / block_max cover the padded blocks, pad
-    elements included.  ``use_kernel=False`` runs the plain version on the
-    same device.
+    elements included.
     """
     n = len(gaps)
     check_range(n, int(np.sum(gaps, dtype=np.int64)))
@@ -49,13 +47,12 @@ def gain_prefix(gaps: np.ndarray, use_kernel: bool = True,
     gp = np.ones(n_pad, np.int32)  # pad gap=1 -> delta 7 (harmless, sliced off)
     gp[:n] = gaps
     t = torch.from_numpy(gp).to(resolve_device(device))
-    g, mn, mx = gain_scan(t) if use_kernel else gain_scan_ref(t, BLOCK)
+    g, mn, mx = gain_scan(t)
     return g.cpu().numpy()[:n], mn.cpu().numpy(), mx.cpu().numpy()
 
 
 def optimal_partitioning_blocked(
-    gaps: np.ndarray, F: int = DEFAULT_F, use_kernel: bool = True,
-    device="cuda",
+    gaps: np.ndarray, F: int = DEFAULT_F, device="cuda",
 ) -> np.ndarray:
     """Exact paper partitioning, gain phase on the kernel.
 
@@ -65,50 +62,7 @@ def optimal_partitioning_blocked(
     ``state_machine`` spans of ``repro_torch.obs`` time the two halves.
     """
     with obs.span("gain_prefix"):
-        g, _mn, _mx = gain_prefix(np.asarray(gaps, np.int32),
-                                  use_kernel=use_kernel, device=device)
+        g, _mn, _mx = gain_prefix(np.asarray(gaps, np.int32), device=device)
     with obs.span("state_machine"):
         deltas = np.diff(np.concatenate([[0], g.astype(np.int64)]))
         return _state_machine(deltas, F, len(gaps))
-
-
-def _state_machine(deltas: np.ndarray, F: int, n: int) -> np.ndarray:
-    """The O(1)-space dominating-point machine over precomputed deltas."""
-    P: list[int] = []
-    T = F
-    i = j = 0
-    g = 0
-    mn = mx = 0
-    # python ints: the same arithmetic as int(deltas[k]), without a numpy
-    # scalar per step
-    for k, d in enumerate(deltas[:n].tolist()):
-        g += d
-        if d >= 0:
-            if g > mx:
-                mx, i = g, k + 1
-            if mn < -T and mn - g < -2 * F:
-                P.append(j)
-                T, i, g = 2 * F, k + 1, g - mn
-                mn, mx = 0, g
-        else:
-            if g < mn:
-                mn, j = g, k + 1
-            if mx > T and mx - g > 2 * F:
-                P.append(i)
-                T, j, g = 2 * F, k + 1, g - mx
-                mx, mn = 0, g
-    if mx > F and mx - g > F:
-        P.append(i)
-        g, mn, mx = g - mx, g - mx, 0
-    if mn < -F and mn - g < -F:
-        P.append(j)
-        g, mx, mn = g - mn, g - mn, 0
-    P.append(n)
-    out, last = [], 0
-    for p in P:
-        if p > last:
-            out.append(p)
-            last = p
-    if not out or out[-1] != n:
-        out.append(n)
-    return np.asarray(out, dtype=np.int64)

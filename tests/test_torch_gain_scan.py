@@ -52,9 +52,6 @@ def _assert_matches_reference(gaps):
     want = rops.gain_prefix(gaps, use_kernel=True, interpret=True)
     for g, w in zip(got, want):
         assert g.dtype == np.int32 and np.array_equal(g, np.asarray(w))
-    plain = tops.gain_prefix(gaps, use_kernel=False, device="cpu")
-    for g, w in zip(plain, got):
-        assert np.array_equal(g, w)
     gp = _padded(gaps)
     port = gain_scan_ref(torch.from_numpy(gp))
     for g, w in zip(port, ref_gain_scan_ref(jnp.asarray(gp))):
@@ -172,9 +169,6 @@ def test_blocked_partitioner_matches_reference(F, n):
     assert got.dtype == np.int64
     assert np.array_equal(got, rops.optimal_partitioning_blocked(gaps, F))
     assert np.array_equal(got, ref_optimal(gaps, F))
-    assert np.array_equal(
-        tops.optimal_partitioning_blocked(gaps, F, use_kernel=False,
-                                          device="cpu"), got)
 
 
 @pytest.mark.parametrize("codecs", ["svb", "auto"])
