@@ -9,14 +9,25 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
 1. card      -- ``nvidia-smi`` name and power limit;
 2. build     -- compile every CUDA source of ``src/repro_torch/csrc`` with
    ``nvcc`` (one process each, all started together);
-3. boolean  -- ``repro_torch.launch.serve`` over the full-size corpus
+3. recsys train -- ``repro_torch.examples.train_recsys.run`` at the full
+   DCN-v2 width (13 dense and 26 sparse fields, a 27,262,976 x 16 table,
+   3 cross layers, MLP 1024-1024-512), initialised on the card from seed
+   0, at the config's ``train_batch`` shape (65,536): one warm-up step and
+   5 timed ones, each decoding a multi-hot feature from the partitioned
+   index and reducing it through ``embedding_bag``, with the launch counts
+   set to 0 just before and read just after.  Held: the card's logits on
+   4,096 examples to a CPU forward of the same parameters, three
+   smoke-config steps on the card to three on the CPU, every loss finite;
+   ``embedding_bag`` to its plain version (phase 7's check, run here while
+   the path's tensors are alive); two steps traced as in phase 4;
+4. boolean  -- ``repro_torch.launch.serve`` over the full-size corpus
    (``--n-lists 256 --min-len 10000 --max-len 2000000 --seed 0 --codec
    auto``: 104.55 M postings), then a few batches through an engine over
    the ``ef`` arena of the SAME index, with every kernel's launch count set
    to 0 just before and read just after; the batched answers are checked
    against the port's scalar NextGEQ loop, and two batches are traced with
    ``torch.profiler`` (device time per kernel against the wall time);
-4. index build -- the boolean path's corpus, made again from its seed,
+5. index build -- the boolean path's corpus, made again from its seed,
    through the two device partitioners with the launch counts set to 0
    just before and read just after: ``build_partitioned_index(...,
    partitioner=optimal_partitioning_blocked, codecs="auto")`` (the
@@ -25,7 +36,7 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    ``optimal_partitioning_via_scan`` (the ``partition_scan`` kernel) must
    give the host's endpoints on every list.  The wall seconds of the three
    partitioners are printed;
-5. ranked   -- ``serve --ranked --topk 10 --resident kernel`` over the same
+6. ranked   -- ``serve --ranked --topk 10 --resident kernel`` over the same
    full-size corpus with its term frequencies, 512 queries of arity 2 in
    batches of 64; then 2 batches through ``resident="mirror"`` (which
    scores the whole arena once) and ``contributions()`` on 4,096 (term,
@@ -33,14 +44,14 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    the same index, all with the launch counts set to 0 just before and
    read just after.  The top-k of 64 queries is held to ``exhaustive_topk``,
    the mirror's to the kernel residency's, the contributions to the host
-   path, all exactly; two batches are traced as in phase 3;
-6. kernels  -- each kernel against its plain PyTorch version on the card,
+   path, all exactly; two batches are traced as in phase 4;
+7. kernels  -- each kernel against its plain PyTorch version on the card,
    at the main paths' shapes, over the arenas and corpus they built
    (integer contracts and the f32 BM25 contract: zero mismatches allowed),
    timed with CUDA events beside its bound (bytes moved over the card's
    memory rate, or for ``partition_scan`` its chain of dependent
    operations over the card's clock);
-7. the ``kernels`` JSON line, then the result line.
+8. the ``kernels`` JSON line, then the result line.
 
 Phase 2 also reads the PTX of the two libraries that evaluate the f32
 BM25 contract and fails on a contracted multiply-add (``fma.rn.f32``) or
@@ -81,7 +92,7 @@ MIRROR_BATCHES = 2  # ranked batches served through resident="mirror"
 CONTRIB_PAIRS = 4096  # (term, doc) pairs through contributions()
 PROBE_CURSORS = 1 << 20  # bm25_score_probe cursors held to the plain version
 LIBS = ["vbyte_decode", "ef_search", "bm25_score", "blockmax_pivot",
-        "pivot_score", "gain_scan", "partition_scan"]
+        "pivot_score", "gain_scan", "partition_scan", "embedding_bag"]
 # the libraries that evaluate the f32 BM25 contract, and what their PTX
 # must not hold: a contracted multiply-add or an approximate division
 F32_LIBS = ["bm25_score", "pivot_score"]
@@ -102,7 +113,19 @@ GUARD_LAUNCH = 53_686_272
 SCAN_CHAIN_OPS = 2
 SCAN_OP_CYCLES = 4
 SCAN_LOOP_STEPS = 16  # steps per pass of partition_scan.cu's main loop
-N_KERNELS = 9
+N_KERNELS = 10
+# the recsys train phase: the full DCN-v2 config at its train_batch shape
+RECSYS_ARCH = "dcn-v2"
+RECSYS_SHAPE = "train_batch"
+RECSYS_WARMUP = 1  # steps before the timed ones
+RECSYS_STEPS = 5  # timed steps
+RECSYS_CHECK = 4096  # examples whose logits are held to a CPU forward
+RECSYS_PROFILE = 2  # steps traced by torch.profiler
+SMOKE_STEPS = 3  # smoke-config steps held card against CPU
+SMOKE_BATCH = 64
+# H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet): the
+# trainer's matmuls run in full f32, TF32 off
+F32_PEAK = 67e12
 DEVICE = "cuda"
 
 
@@ -234,7 +257,7 @@ def near_max_rows(rng):
 
 
 def run_main_path(n_lists, torch, serve, counters, QueryEngine):
-    """Phase 3; returns (the serve summary, the ef engine, launches)."""
+    """Phase 4; returns (the serve summary, the ef engine, launches)."""
     for c in counters.values():
         c.launches = 0
     argv = ["--n-lists", str(n_lists), *SERVE_ARGS, "--device", DEVICE]
@@ -292,9 +315,17 @@ def span_ms() -> dict:
 
 
 def profile_batches(torch, serve_batch, queries, card, label) -> None:
-    """Where a batch's time goes: device time per kernel from
-    ``torch.profiler`` against the wall time, and the host spans of
-    ``repro_torch.obs``, over PROFILE_BATCHES batches of ``serve_batch``."""
+    """Where a batch's time goes, over PROFILE_BATCHES batches of
+    ``serve_batch`` (see ``profile_calls``)."""
+    batches = [queries[i : i + BATCH]
+               for i in range(0, PROFILE_BATCHES * BATCH, BATCH)]
+    profile_calls(torch, [lambda b=b: serve_batch(b) for b in batches], card,
+                  label, "batches")
+
+
+def profile_calls(torch, calls, card, label, unit) -> None:
+    """Device time per kernel from ``torch.profiler`` against the wall time
+    of ``calls``, and the host spans of ``repro_torch.obs``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -302,12 +333,10 @@ def profile_batches(torch, serve_batch, queries, card, label) -> None:
 
     obs.reset()
     obs.enable()
-    batches = [queries[i : i + BATCH]
-               for i in range(0, PROFILE_BATCHES * BATCH, BATCH)]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for b in batches:
-            serve_batch(b)
+        for call in calls:
+            call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     obs.enable(False)
@@ -321,7 +350,7 @@ def profile_batches(torch, serve_batch, queries, card, label) -> None:
     spans = span_ms()
     busy = sum(dev.values())
     top = dict(sorted(dev.items(), key=lambda kv: -kv[1])[:8])
-    print(f"[chip_smoke] {label} profile over {len(batches)} batches: wall "
+    print(f"[chip_smoke] {label} profile over {len(calls)} {unit}: wall "
           f"{wall_ms:.1f} ms, device busy {busy:.2f} ms "
           f"({busy / wall_ms:.2%}), idle {1 - busy / wall_ms:.2%} [{card}]")
     print(f"[chip_smoke] {label} profile device ms by name: "
@@ -358,7 +387,7 @@ def kernel_row(launches, card, name, src, replaces, mism, err, ms, plain_ms,
 
 
 def check_kernels(torch, res, ef_engine, launches, card):
-    """Phase 5, the boolean kernels: each against its plain version;
+    """Phase 7, the boolean kernels: each against its plain version;
     returns their rows of the ``kernels`` line."""
     from repro_torch.core.arena import CODEC_EF
     from repro_torch.kernels.ef_search import kernel as efk
@@ -483,7 +512,7 @@ def contrib_pairs(rng, engine, n: int):
 
 
 def run_ranked_path(n_queries, torch, serve, counters, card):
-    """Phase 4; returns (the serve summary, the mirror engine, the
+    """Phase 6; returns (the serve summary, the mirror engine, the
     contribution pairs, launches)."""
     from repro_torch.ranked.bm25 import exhaustive_topk
     from repro_torch.ranked.topk_engine import TopKEngine
@@ -564,12 +593,13 @@ def run_ranked_path(n_queries, torch, serve, counters, card):
 
 
 def check_ranked_kernels(torch, rres, launches, card):
-    """Phase 5, the ranked kernels: each against its plain version at the
+    """Phase 7, the ranked kernels: each against its plain version at the
     ranked path's largest launch shapes; returns their rows of the
     ``kernels`` line."""
     from repro_torch.core.arena import CODEC_EF
     from repro_torch.core.engine_core import build_pivot_chunks
     from repro_torch.kernels.blockmax_pivot import kernel as pk
+    from repro_torch.kernels.embedding_bag import kernel as ebk
     from repro_torch.kernels.blockmax_pivot import ref as pref
     from repro_torch.kernels.bm25_score import kernel as bk
     from repro_torch.kernels.bm25_score import ref as bref
@@ -692,7 +722,7 @@ def serve_arg(flag: str) -> int:
 
 
 def run_build_path(n_lists, res, torch, counters, card):
-    """Phase 4; returns (the gaps of every list, launches)."""
+    """Phase 5; returns (the gaps of every list, launches)."""
     from repro_torch import obs
     from repro_torch.core.costs import gaps_from_sorted
     from repro_torch.core.index import build_partitioned_index
@@ -848,7 +878,7 @@ def scan_sass() -> str:
 
 
 def check_build_kernels(torch, gaps_all, launches, card):
-    """Phase 6, the index-build kernels: gain_scan on every list and on one
+    """Phase 7, the index-build kernels: gain_scan on every list and on one
     launch at its range guard, partition_scan on the largest list, each
     against its plain version; returns their rows of the ``kernels``
     line."""
@@ -920,6 +950,189 @@ def check_build_kernels(torch, gaps_all, launches, card):
     return rows_out
 
 
+def dcn_train_flops(cfg, batch: int) -> float:
+    """Model FLOPs of one DCN-v2 train step: the reference's
+    ``_recsys_flops`` (``repro/launch/cells.py``), 3x the forward's matmuls
+    for the forward and backward."""
+    x0 = cfg.n_dense + cfg.n_sparse * cfg.embed_dim
+    per = cfg.n_cross_layers * 2 * x0 * x0
+    dims = (x0, *cfg.mlp, 1)
+    per += sum(2 * a * b for a, b in zip(dims, dims[1:]))
+    return 3.0 * per * batch
+
+
+def run_recsys_path(torch, counters, card):
+    """Phase 3; returns (the run's result, launches).  Two more steps are
+    traced after the checks."""
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.examples import train_recsys as ex
+    from repro_torch.models.common import param_dict, tree_size
+    from repro_torch.models.recsys import init_model, serve_score
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[chip_smoke] recsys: allow_tf32 matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cudnn "
+          f"{torch.backends.cudnn.allow_tf32}, float32 matmul precision "
+          f"{torch.get_float32_matmul_precision()!r}", flush=True)
+    bundle = get_arch(RECSYS_ARCH)
+    cfg = bundle.full
+    batch = next(s.batch for s in bundle.shapes if s.name == RECSYS_SHAPE)
+    steps = RECSYS_WARMUP + RECSYS_STEPS
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = ex.run(cfg, steps, batch, device=DEVICE, seed=0)
+    run_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[chip_smoke] recsys-path launches: {launches}", flush=True)
+    if launches["embedding_bag"] != steps:
+        fail(f"embedding_bag launched {launches['embedding_bag']} times in "
+             f"{steps} steps")
+    losses = res["losses"]
+    if not np.isfinite(losses).all():
+        fail(f"recsys train: a loss is not finite: {losses}")
+    model = res["state"]["model"]
+    timed = res["records"][RECSYS_WARMUP:]
+    step_ms = [r["step_s"] * 1e3 for r in timed]
+    host_ms = [(r["batch_s"] + r["decode_s"]) * 1e3 for r in timed]
+    flops = dcn_train_flops(cfg, batch)
+    p50 = float(np.percentile(step_ms, 50))
+    summary = {
+        "config": cfg.name, "params": tree_size(model), "batch": batch,
+        "steps": steps, "warmup_steps": RECSYS_WARMUP,
+        "k": int(timed[0]["ids"].shape[1]),
+        "step_p50_ms": p50, "step_p99_ms": float(np.percentile(step_ms, 99)),
+        "step_ms": step_ms,
+        "examples_per_s": batch * len(step_ms) / (sum(step_ms) / 1e3),
+        "examples_per_s_with_host": batch * len(step_ms)
+        / ((sum(step_ms) + sum(host_ms)) / 1e3),
+        "make_ctr_batch_ms": [r["batch_s"] * 1e3 for r in timed],
+        "decode_multihot_batch_ms": [r["decode_s"] * 1e3 for r in timed],
+        "losses": losses, "embedding_bag_launches": launches["embedding_bag"],
+        "max_memory_allocated": peak, "model_tflop_per_step": flops / 1e12,
+        "model_tflops": flops / (p50 / 1e3) / 1e12,
+        "f32_peak_share": flops / (p50 / 1e3) / F32_PEAK,
+        "run_s": run_s, "card": card,
+    }
+    print(f"[chip_smoke] recsys train: {json.dumps(summary)}", flush=True)
+
+    # the card's logits against a CPU forward of the same parameters
+    first = timed[0]["batch"]
+    sub = {k: v[:RECSYS_CHECK] for k, v in first.items()}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        got = serve_score(model, sub, cfg).cpu()
+        host = convert.recsys_params_from_arrays(
+            convert.recsys_params_to_arrays(model), cfg, "cpu")
+        want = serve_score(host, {k: v.cpu() for k, v in sub.items()}, cfg)
+    del host
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-6):
+        fail(f"recsys logits on the card differ from the CPU forward: max "
+             f"|diff| {float((got - want).abs().max()):.3e}")
+    rel = float(((got - want).abs() / want.abs().clamp_min(1e-6)).max())
+    print(f"[chip_smoke] recsys logits of {RECSYS_CHECK} examples of the first "
+          f"timed batch equal a CPU forward of the same parameters within "
+          f"rtol 1e-4, atol 1e-6 (max relative difference {rel:.3e}, max |diff| "
+          f"{float((got - want).abs().max()):.3e}; "
+          f"{time.perf_counter()-t0:.1f}s)", flush=True)
+
+    # smoke-config steps on the card against the CPU, from one init
+    smoke = bundle.smoke
+    init = convert.recsys_params_to_arrays(init_model(smoke, 0, "cpu"))
+    cpu = ex.run(smoke, SMOKE_STEPS, SMOKE_BATCH, device="cpu", params=init)
+    dev = ex.run(smoke, SMOKE_STEPS, SMOKE_BATCH, device=DEVICE, params=init)
+    if not np.allclose(dev["losses"], cpu["losses"], rtol=1e-5, atol=0):
+        fail(f"smoke steps: card losses {dev['losses']} != CPU "
+             f"{cpu['losses']}")
+    worst = 0.0
+    want = param_dict(cpu["state"]["model"])
+    for k, p in param_dict(dev["state"]["model"]).items():
+        w = want[k].detach()
+        d = (p.detach().cpu() - w).abs() / (1e-5 + 1e-4 * w.abs())
+        worst = max(worst, float(d.max()))
+    if worst > 1:
+        fail(f"smoke steps: card parameters off the CPU's ({worst:.2f}x "
+             "the tolerance)")
+    print(f"[chip_smoke] recsys smoke config: {SMOKE_STEPS} steps of "
+          f"{SMOKE_BATCH} on the card equal the CPU's (losses within rtol "
+          f"1e-5, parameters within {worst:.3f} of atol 1e-5 + rtol 1e-4)",
+          flush=True)
+    profile_calls(torch, [lambda s=s: ex.train_step(res["state"], s, batch)
+                          for s in range(steps, steps + RECSYS_PROFILE)],
+                  card, "recsys", "steps")
+    return res, launches
+
+
+def check_recsys_kernels(torch, res, launches, card):
+    """Phase 7, ``embedding_bag``: against its plain version at the path's
+    shape (the last step's ids and mask over the first field's rows), on
+    the table padded to the reference's 128 columns, on a bf16 table and
+    with out-of-range ids planted; timed beside its bound and beside
+    ``F.embedding_bag`` (the same function, timed as a yardstick only);
+    returns its row of the ``kernels`` line."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import kernel as ek
+    from repro_torch.kernels.embedding_bag import ref as eref
+
+    cfg = res["state"]["cfg"]
+    last = res["records"][-1]
+    table = res["state"]["model"].table.detach()[: cfg.rows_per_field]
+    ids, w = last["ids"], last["mask"].float()
+    (B, K), (V, D) = ids.shape, table.shape
+    checks = {}
+
+    def check(name, t, i, ww):
+        got = ek.embedding_bag(t, i, ww)
+        mism, err = compare_f32(got, eref.embedding_bag_ref(t, i, ww))
+        checks[name] = {"mismatches": mism, "max_abs_err": err}
+        return got
+
+    got = check(f"path D={D}", table, ids, w)
+    padded = F.pad(table, (0, 128 - D))
+    got128 = check("padded D=128", padded, ids, w)
+    checks["padded D=128"]["equals the unpadded bag"] = bool(
+        torch.equal(got128[:, :D], got))
+    check("bf16 table", table.bfloat16(), ids, w)
+    bad = ids.clone()
+    bad[:, 0], bad[::2, 1] = -1, V
+    wb = w.clone()
+    wb[:, :2] = 1.0
+    check("ids -1 and V", table, bad, wb)
+    print(f"[chip_smoke] embedding_bag checks: {json.dumps(checks)}", flush=True)
+    if not checks["padded D=128"]["equals the unpadded bag"]:
+        fail("embedding_bag: the padded table's bag differs from the "
+             "unpadded one")
+    ms = event_ms(lambda: ek.embedding_bag(table, ids, w), 20)
+    plain_ms = event_ms(lambda: eref.embedding_bag_ref(table, ids, w), 3)
+    lib = F.embedding_bag(ids, table, per_sample_weights=w, mode="sum")
+    lib_ms = event_ms(lambda: F.embedding_bag(ids, table, per_sample_weights=w,
+                                              mode="sum"), 20)
+    lib_err = float((lib - got).abs().max())
+    ms128 = event_ms(lambda: ek.embedding_bag(padded, ids, w), 20)
+    rows = len(torch.unique(eref.clamp_ids(ids, V)))
+    nbytes = rows * D * 4 + B * K * 8 + B * D * 4
+    gathered = B * K * D * 4
+    mism = sum(c["mismatches"] for c in checks.values())
+    err = max(c["max_abs_err"] for c in checks.values())
+    return kernel_row(
+        launches, card, "embedding_bag", "src/repro_torch/csrc/embedding_bag.cu",
+        "src/repro/kernels/embedding_bag/kernel.py:38", mism, err, ms,
+        plain_ms, nbytes,
+        f"B={B:,} K={K} D={D} over {rows:,} distinct rows ({gathered/1e6:.1f} "
+        f"MB gathered, {gathered / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM "
+        f"rate); padded D=128 {ms128:.4f} ms; F.embedding_bag {lib_ms:.4f} ms, "
+        f"max |diff| {lib_err:.3e}",
+        note={"library_ms": lib_ms, "library_max_abs_diff": lib_err,
+              "gathered_bytes": gathered, "distinct_rows": rows,
+              "padded_d128_ms": ms128, "checks": checks})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-lists", type=int, default=N_LISTS,
@@ -941,6 +1154,7 @@ def main(argv=None) -> int:
     from repro_torch.core.query_engine import QueryEngine
     from repro_torch.kernels import _build
     from repro_torch.kernels.blockmax_pivot import kernel as pk
+    from repro_torch.kernels.embedding_bag import kernel as ebk
     from repro_torch.kernels.bm25_score import kernel as bk
     from repro_torch.kernels.ef_search import kernel as efk
     from repro_torch.kernels.gain_scan import kernel as gk
@@ -967,7 +1181,16 @@ def main(argv=None) -> int:
           flush=True)
     check_ptx(_build)
 
-    # 3. the boolean path, counted
+    # 3. the recsys trainer at full width, counted; embedding_bag's check
+    # runs while the path's tensors are alive, then they are freed
+    rec_res, rec_launches = run_recsys_path(
+        torch, {"embedding_bag": ebk.embedding_bag, "decode_blocks":
+                vk.decode_blocks}, card)
+    bag_row = check_recsys_kernels(torch, rec_res, rec_launches, card)
+    del rec_res
+    torch.cuda.empty_cache()
+
+    # 4. the boolean path, counted
     counters = {"decode_search": vk.decode_search,
                 "decode_blocks": vk.decode_blocks,
                 "ef_search": efk.ef_search}
@@ -988,12 +1211,12 @@ def main(argv=None) -> int:
     profile_batches(torch, res["engine"].intersect_batch, res["queries"],
                     card, "boolean")
 
-    # 4. the index build through the device partitioners, counted
+    # 5. the index build through the device partitioners, counted
     build_gaps, blaunches = run_build_path(
         args.n_lists, res, torch,
         {"gain_scan": gk.gain_scan, "partition_scan": psk.partition_scan}, card)
 
-    # 5. the ranked path, counted
+    # 6. the ranked path, counted
     all_counters = {**counters, "bm25_score_probe": bk.bm25_score_probe,
                     "bm25_score_rows": bk.bm25_score_rows,
                     "pivot_select": pk.pivot_select,
@@ -1017,16 +1240,17 @@ def main(argv=None) -> int:
     profile_batches(torch, lambda b: reng.topk_batch(b, TOPK),
                     rres["queries"], card, "ranked")
 
-    # 6. each kernel against its plain version
+    # 7. each kernel against its plain version
     kernels = check_kernels(torch, res, ef_engine, launches, card)
     kernels += check_ranked_kernels(torch, rres, rlaunches, card)
     kernels += check_build_kernels(torch, build_gaps, blaunches, card)
+    kernels.append(bag_row)
     if len(kernels) != N_KERNELS:
         fail(f"the kernels line has {len(kernels)} rows, not {N_KERNELS}")
     print(f"[chip_smoke] all phases passed in "
           f"{time.perf_counter()-t_start:.1f}s", flush=True)
 
-    # 7. the kernels line, then the result line
+    # 8. the kernels line, then the result line
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,11 +6,16 @@ move it as a plain dict of numpy arrays (the ``PartitionedIndex`` fields
 of ``repro.core.index``), so an index built once by either package is
 served by the other without a rebuild.  The port's own build gives
 byte-identical arrays for the same corpus, so both routes meet.
+
+A recsys model's parameters move the same way: ``recsys_params_to_arrays``
+and ``recsys_params_from_arrays`` turn the port's module into the
+reference's tree of arrays and back.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.index import PartitionedIndex
 
@@ -48,3 +53,45 @@ def index_from_arrays(d: dict) -> PartitionedIndex:
     kw["F"] = int(d.get("F", 64))
     kw["codecs"] = str(d.get("codecs", "svb"))
     return PartitionedIndex(**kw)
+
+
+def recsys_params_from_arrays(tree: dict, cfg, device="cuda"):
+    """The port's ``Recsys`` module from the reference's parameter tree
+    (``repro.models.recsys.init_params`` as numpy arrays: the same names
+    and ``[in, out]`` layouts, so each leaf is a copy) on ``device``."""
+    from .api import resolve_device
+    from .models.recsys import Recsys, param_shapes
+
+    dev = resolve_device(device)
+
+    def leaf(x):
+        return torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+
+    params = {k: ([{n: leaf(v) for n, v in layer.items()} for layer in x]
+                  if isinstance(x, (list, tuple)) else leaf(x))
+              for k, x in tree.items()}
+    model = Recsys(cfg, params)
+    got = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    want = param_shapes(cfg)
+    if got != want:
+        raise ValueError(f"parameter tree does not fit {cfg.name}: "
+                         f"{sorted(set(got.items()) ^ set(want.items()))}")
+    return model
+
+
+def recsys_params_to_arrays(model) -> dict:
+    """The reference's parameter tree (nested dicts and lists of numpy f32
+    arrays) from the port's ``Recsys`` module."""
+    tree: dict = {}
+    for name, p in model.named_parameters():
+        x = p.detach().cpu().numpy()
+        parts = name.split(".")
+        if len(parts) == 1:
+            tree[name] = x
+        else:
+            key, i, leaf = parts
+            layers = tree.setdefault(key, [])
+            while len(layers) <= int(i):
+                layers.append({})
+            layers[int(i)][leaf] = x
+    return tree

@@ -48,7 +48,10 @@ def test_scanner_flags_what_it_must(tmp_path):
     assert _forbidden_imports(str(bad)) == ["jax.numpy", "repro.core"]
 
 
-@pytest.mark.parametrize("module", ["repro_torch.launch.serve", "repro_torch.convert"])
+@pytest.mark.parametrize("module", [
+    "repro_torch.launch.serve", "repro_torch.convert",
+    "repro_torch.examples.train_recsys", "repro_torch.launch.cells",
+])
 def test_import_leaves_no_jax_or_repro_module(module):
     code = (
         f"import sys, {module}\n"
