@@ -49,8 +49,10 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    at the main paths' shapes, over the arenas and corpus they built
    (integer contracts and the f32 BM25 contract: zero mismatches allowed),
    timed with CUDA events beside its bound (bytes moved over the card's
-   memory rate, or for ``partition_scan`` its chain of dependent
-   operations over the card's clock);
+   memory rate, or for ``partition_scan`` the larger of that and the chain
+   its emissions form over the card's clock); for the two index-build
+   kernels also their device time summed over the path's 256 per-list
+   launches;
 8. the ``kernels`` JSON line, then the result line.
 
 Phase 2 also reads the PTX of the two libraries that evaluate the f32
@@ -105,14 +107,25 @@ PLAIN_CHUNK = 1 << 19  # cursors (rows) per call of a plain version
 # the longest gain_scan launch the range guard admits (40 n < 2^31), cut to
 # whole 1024-element blocks: 52,428 blocks, the carry's longest chain
 GUARD_LAUNCH = 53_686_272
-# partition_scan's bound: the shortest chain any branch-free step allows.
-# Whether a step emits depends on the carried state, and the next state on
-# that decision: one compare, then one select, per step.  Each is a
-# fixed-latency integer operation, and the sm_90a SASS schedule leaves no
-# less than 4 cycles between one and its first use (scan_sass prints it).
+# partition_scan's bound, the larger of two: its bytes (4 B read and 5 B
+# written a step) over the memory rate, and the chain its emissions form.
+# Between two emissions the steps are independent scans; each emission
+# decides the carry every later step reads: at least one compare, then one
+# select, each a fixed-latency integer operation of 4 cycles or more on
+# sm_90a.  The emissions counted are this run's (mask.sum()).
 SCAN_CHAIN_OPS = 2
 SCAN_OP_CYCLES = 4
-SCAN_LOOP_STEPS = 16  # steps per pass of partition_scan.cu's main loop
+SCAN_STEP_BYTES = 4 + 5
+SCAN_ROUND_STEPS = 512  # steps a round of partition_scan.cu (32 lanes x 16)
+# the scan partitioner over the full corpus with the earlier one-thread
+# partition_scan kernel, on an H100 80GB HBM3 at 700 W (PERF.md): wall s,
+# and its partition_scan span (copy up, kernel, fetch of every step's
+# mask and pos), printed beside this run's
+ONE_THREAD_SCAN_S = 8.55
+ONE_THREAD_SCAN_SPAN_S = 3.46
+# cycles of the spin kernel queued ahead of a timed series of launches, so
+# that the host's launch gaps fall before the first event (about 50 ms)
+SPIN_CYCLES = 100_000_000
 N_KERNELS = 10
 # the recsys train phase: the full DCN-v2 config at its train_batch shape
 RECSYS_ARCH = "dcn-v2"
@@ -799,12 +812,15 @@ def run_build_path(n_lists, res, torch, counters, card):
           f"{len(scan_P)} lists ({len(idx.sizes):,} partitions)", flush=True)
     gain_s = spans.get("gain_prefix", 0.0) / 1e3
     machine_s = spans.get("state_machine", 0.0) / 1e3
+    scan_span_s = scan_spans.get("partition_scan", 0.0) / 1e3
     summary = {
         "host_partitioner_s": host_s,
         "blocked_partitioner_s": gain_s + machine_s,
         "blocked_gain_prefix_s": gain_s, "blocked_state_machine_s": machine_s,
-        "scan_partitioner_s": scan_s,
-        "scan_kernel_and_fetch_s": scan_spans.get("partition_scan", 0.0) / 1e3,
+        "scan_partitioner_s": scan_s, "scan_kernel_and_fetch_s": scan_span_s,
+        "one_thread_scan_partitioner_s": ONE_THREAD_SCAN_S,
+        "one_thread_scan_kernel_and_fetch_s": ONE_THREAD_SCAN_SPAN_S,
+        "scan_span_shrink_s": ONE_THREAD_SCAN_SPAN_S - scan_span_s,
         "host_build_s": res["build_s"], "blocked_build_s": blocked_s,
         "launches": launches, "card": card,
     }
@@ -813,11 +829,11 @@ def run_build_path(n_lists, res, torch, counters, card):
 
 
 def scan_sass() -> str:
-    """What the compiler emitted for partition_scan's main loop, read from
-    ``cuobjdump -sass`` of the built library: instructions, the longest
-    chain of dependent instructions through the carried registers, and the
-    issue cycles of the schedule's stall counts, each per step; and the
-    least issue distance from a fixed-latency result to its first use."""
+    """What the compiler emitted for partition_scan's round loop (the
+    instance that writes mask and pos), read from ``cuobjdump -sass`` of
+    the built library: its instructions and the issue cycles of the
+    schedule's stall counts, per step of a round.  Static counts: the
+    restart after an emission and each branch count once."""
     import re
 
     from repro_torch.kernels import _build
@@ -831,10 +847,14 @@ def scan_sass() -> str:
         return f"not measured ({e})"
     if proc.returncode:
         return f"not measured ({exe} -sass: {proc.stderr.strip()[:200]})"
-    lines = proc.stdout.splitlines()
+    funcs = [f for f in re.split(r"\n\s*Function : ", proc.stdout)[1:]
+             if "kernelILb1E" in f.splitlines()[0]]
+    if not funcs:
+        return "not measured (no mask-writing instance in the SASS)"
+    lines = funcs[0].splitlines()
     code = []  # (address, instruction, stall cycles from the control word)
     for a, b in zip(lines, lines[1:]):
-        m = re.match(r"\s*/\*([0-9a-f]{4})\*/\s+(.*?)\s*;\s*/\* 0x", a)
+        m = re.match(r"\s*/\*([0-9a-f]{4,5})\*/\s+(.*?)\s*;\s*/\* 0x", a)
         c = re.search(r"/\* (0x[0-9a-f]{16}) \*/", b)
         if m and c:
             code.append((int(m.group(1), 16), m.group(2),
@@ -844,44 +864,36 @@ def scan_sass() -> str:
     if not back:
         return "not measured (no backward branch in the SASS)"
     end, top = max(back, key=lambda e: e[0] - e[1])
-    depth, written, live_in, ready = {}, set(), set(), {}
-    cycle, least = 0, None
-    for a, x, stall in code:
-        if not top <= a <= end:
-            continue
-        m = re.match(r"@!?(P\d+)\s+(.*)", x)
-        guard, x = (m.group(1), m.group(2)) if m else (None, x)
-        op, _, rest = x.partition(" ")
-        args = [r.strip() for r in rest.split(",")] if rest else []
-        n_dst = (0 if op.startswith(("ST", "BRA", "EXIT")) else
-                 2 if op.startswith(("ISETP", "PLOP3")) else 1)
-        dst = [r for o in args[:n_dst] for r in re.findall(r"\b(?:R|P)\d+\b", o)]
-        src = [r for o in args[n_dst:] for r in re.findall(r"\b(?:U?R|U?P)\d+\b", o)]
-        if guard:  # a predicated write keeps the old value otherwise
-            src += [guard] + dst
-        live_in.update(r for r in src if r not in written)
-        for r in src:
-            if r in ready and not ready[r][1].startswith(("LD", "S2R")):
-                gap = cycle - ready[r][0]
-                least = gap if least is None else min(least, gap)
-        d = 1 + max((depth.get(r, 0) for r in src), default=0)
-        for r in dst:
-            depth[r], ready[r] = d, (cycle, op)
-        written.update(dst)
-        cycle += stall
-    n_ins = sum(1 for a, _, _ in code if top <= a <= end)
-    chain = max(depth.get(r, 0) for r in live_in)
-    return (f"{n_ins / SCAN_LOOP_STEPS:.2f} instructions, a carried chain of "
-            f"{chain / SCAN_LOOP_STEPS:.2f} dependent instructions and "
-            f"{cycle / SCAN_LOOP_STEPS:.2f} issue cycles per step; least "
-            f"issue distance to a first use {least} cycles")
+    loop = [(x, st) for a, x, st in code if top <= a <= end]
+    n_shfl = sum(1 for x, _ in loop if "SHFL" in x or "VOTE" in x or "REDUX" in x)
+    return (f"{len(loop) / SCAN_ROUND_STEPS:.2f} instructions and "
+            f"{sum(st for _, st in loop) / SCAN_ROUND_STEPS:.2f} issue cycles "
+            f"per step of a {SCAN_ROUND_STEPS}-step round ({len(loop)} "
+            f"instructions, {n_shfl} of them shuffles, votes or reductions)")
+
+
+def summed_event_ms(torch, calls) -> float:
+    """Device time of each call, summed over the calls: a CUDA event pair
+    around each, all queued behind a spin kernel, so that the host's gaps
+    between launches fall outside every pair."""
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in calls]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    for (start, stop), call in zip(pairs, calls):
+        start.record()
+        call()
+        stop.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(stop) for start, stop in pairs)
 
 
 def check_build_kernels(torch, gaps_all, launches, card):
     """Phase 7, the index-build kernels: gain_scan on every list and on one
-    launch at its range guard, partition_scan on the largest list, each
-    against its plain version; returns their rows of the ``kernels``
-    line."""
+    launch at its range guard, partition_scan on the largest list and on
+    sequences that stress its restarts, each against its plain version;
+    both timed at their largest launch and summed over the path's per-list
+    launches.  Returns their rows of the ``kernels`` line."""
     from repro_torch.core.costs import DEFAULT_F, gain_deltas_np
     from repro_torch.kernels.gain_scan import kernel as gk
     from repro_torch.kernels.gain_scan import ref as gref
@@ -907,10 +919,13 @@ def check_build_kernels(torch, gaps_all, launches, card):
 
     # -- gain_scan on every list, then one launch at the range guard --------
     mism, err = 0, 0
-    for gaps in gaps_all:
-        t = padded(gaps)
+    lists = [padded(gaps) for gaps in gaps_all]
+    for t in lists:
         m, e = compare_all(gk.gain_scan(t), gref.gain_scan_ref(t, gk.BLOCK))
         mism, err = mism + m, max(err, e)
+    path_ms = summed_event_ms(torch, [lambda t=t: gk.gain_scan(t)
+                                      for t in lists])
+    del lists
     cat = np.resize(np.concatenate(gaps_all), GUARD_LAUNCH)
     check_range(len(cat), int(cat.sum()))
     t = padded(cat)
@@ -925,27 +940,81 @@ def check_build_kernels(torch, gaps_all, launches, card):
            ms, plain_ms, GUARD_LAUNCH * 8 + nb * 8,
            f"all {len(gaps_all)} lists, then {GUARD_LAUNCH:,} gaps of the "
            f"corpus ({nb:,} blocks, universe {int(cat.sum()):,}) in one "
-           f"launch; torch.cumsum of its int32 deltas {cumsum_ms:.4f} ms",
-           note={"cumsum_ms": cumsum_ms})
+           f"launch; torch.cumsum of its int32 deltas {cumsum_ms:.4f} ms; "
+           f"summed over the {len(gaps_all)} per-list launches {path_ms:.4f} "
+           f"ms", note={"cumsum_ms": cumsum_ms, "path_kernel_ms": path_ms})
+    del t, deltas
 
-    # -- partition_scan on the largest list --------------------------------
+    # -- partition_scan: the largest list, then sequences that restart -----
+    rng = np.random.default_rng(2)
+
+    def mixed_deltas(n, dense):
+        gaps = np.where(rng.random(n) < dense, rng.integers(1, 3, n),
+                        rng.integers(1, 5000, n))
+        return gain_deltas_np(gaps)
+
+    extreme = np.random.default_rng(9).choice(
+        [2**31 - 1, -(2**31), 2**30, -(2**30), 1, -1, 0], 400)
+    dense = mixed_deltas(200_000, 0.5)
+    cases = [("dense F=0", dense, 0), ("dense F=1", dense, 1),
+             ("extreme F=64", extreme, DEFAULT_F), ("extreme F=0", extreme, 0)]
+    cases += [(f"n={n} F={F}", mixed_deltas(n, 0.5), F)
+              for n in (1, 127, 128, 129, 4097) for F in (DEFAULT_F, 0)]
+
+    def check_scan(d, F):
+        """partition_scan and partition_scan_bounds against the plain
+        version: (mismatches, max |difference|, emissions)."""
+        want = sref.partition_scan_ref(d, F)
+        m, e = compare_all(sk.partition_scan(d, F), want)
+        carry, bounds = sk.partition_scan_bounds(d, F)
+        found = want[2][want[1]]
+        k = int(carry[7])
+        if k != found.numel():
+            return m + 1, e, found.numel()
+        m += compare(carry[:7], want[0])[0]
+        m += compare(bounds[:k], found)[0] if k else 0
+        return m, e, k
+
+    mism, err, checked = 0, 0, []
+    for what, d, F in cases:
+        m, e, k = check_scan(
+            torch.from_numpy(np.asarray(d).astype(np.int32)).to(cuda), F)
+        mism, err = mism + m, max(err, e)
+        checked.append(f"{what}: {k:,} emissions")
     big = int(np.argmax([len(g) for g in gaps_all]))
     n = len(gaps_all[big])
     d = torch.from_numpy(gain_deltas_np(gaps_all[big]).astype(np.int32)).to(cuda)
-    mism, err = compare_all(sk.partition_scan(d, DEFAULT_F),
-                            sref.partition_scan_ref(d, DEFAULT_F))
+    m, e, emissions = check_scan(d, DEFAULT_F)
+    mism, err = mism + m, max(err, e)
     ms = event_ms(lambda: sk.partition_scan(d, DEFAULT_F), 5)
+    bounds_ms = event_ms(lambda: sk.partition_scan_bounds(d, DEFAULT_F), 5)
     plain_ms = event_ms(lambda: sref.partition_scan_ref(d, DEFAULT_F), 1)
+    # the path's launches: one a list, boundaries alone
+    on_card = [torch.from_numpy(gain_deltas_np(g).astype(np.int32)).to(cuda)
+               for g in gaps_all]
+    path_ms = summed_event_ms(
+        torch, [lambda x=x: sk.partition_scan_bounds(x, DEFAULT_F)
+                for x in on_card])
+    del on_card
     hz = sm_clock_hz()
-    bound_ms = n * SCAN_CHAIN_OPS * SCAN_OP_CYCLES / hz * 1e3
+    chain_ms = emissions * SCAN_CHAIN_OPS * SCAN_OP_CYCLES / hz * 1e3
+    bytes_ms = n * SCAN_STEP_BYTES / HBM_BYTES_PER_S * 1e3
     sass = scan_sass()
+    chain_how = (f"{emissions:,} emissions x {SCAN_CHAIN_OPS} dependent ops x "
+                 f"{SCAN_OP_CYCLES} cycles at {hz/1e6:.0f} MHz; bytes "
+                 f"{bytes_ms:.4f} ms")
     report("partition_scan", "src/repro_torch/csrc/partition_scan.cu",
-           "src/repro/core/partition.py:172", mism, err, ms, plain_ms, 0,
-           f"list {big}, {n:,} steps, {ms * 1e-3 * hz / n:.2f} cycles per "
-           f"step; its SASS: {sass}",
-           ops_bound=(bound_ms, f"{n:,} steps x {SCAN_CHAIN_OPS} dependent "
-                      f"ops x {SCAN_OP_CYCLES} cycles at {hz/1e6:.0f} MHz"),
-           note={"sass": sass})
+           "src/repro/core/partition.py:172", mism, err, ms, plain_ms,
+           n * SCAN_STEP_BYTES,
+           f"list {big}, {n:,} steps, {emissions:,} emissions, "
+           f"{ms * 1e-3 * hz / n:.2f} cycles per step; boundaries alone "
+           f"{bounds_ms:.4f} ms; summed over the {len(gaps_all)} per-list "
+           f"launches {path_ms:.4f} ms; also held: {'; '.join(checked)}; "
+           f"its SASS: {sass}",
+           ops_bound=((chain_ms, chain_how) if chain_ms >= bytes_ms else None),
+           note={"sass": sass, "emissions": emissions,
+                 "bounds_only_ms": bounds_ms, "path_kernel_ms": path_ms,
+                 "chain_bound_ms": chain_ms, "bytes_bound_ms": bytes_ms})
     torch.cuda.synchronize()
     return rows_out
 

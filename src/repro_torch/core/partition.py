@@ -33,7 +33,7 @@ import torch
 
 from .. import obs
 from ..api import resolve_device
-from ..kernels.partition_scan.kernel import partition_scan
+from ..kernels.partition_scan.kernel import partition_scan, partition_scan_bounds
 from .costs import DEFAULT_F, elem_costs_np, gain_deltas_np
 
 
@@ -112,6 +112,10 @@ def _close(P: list, i: int, j: int, g: int, mn: int, mx: int, F: int,
 # Same state machine as a scan on the card.
 # ==========================================================================
 
+def _deltas_on(deltas, device) -> torch.Tensor:
+    return torch.as_tensor(deltas).to(resolve_device(device), torch.int32).contiguous()
+
+
 def optimal_partitioning_scan(deltas, F: int = DEFAULT_F, device="cuda"):
     """Scan version.  Input: per-element gain deltas (int32).
 
@@ -122,26 +126,25 @@ def optimal_partitioning_scan(deltas, F: int = DEFAULT_F, device="cuda"):
     boundary.  The final close() boundaries come from the carry, appended by
     the host-side wrapper ``optimal_partitioning_via_scan``.
     """
-    d = torch.as_tensor(deltas).to(resolve_device(device), torch.int32)
-    return partition_scan(d.contiguous(), F)
+    return partition_scan(_deltas_on(deltas, device), F)
 
 
 def optimal_partitioning_via_scan(gaps: np.ndarray, F: int = DEFAULT_F,
                                   device="cuda") -> np.ndarray:
-    """Host wrapper: deltas on the host, the scan on ``device``, one fetch,
-    then close() on the final carry (the ``partition_scan`` span of
-    ``repro_torch.obs`` times the scan and the fetch)."""
+    """Host wrapper: deltas on the host, the scan on ``device``, then close()
+    on the final carry.  Only the carry and the emitted boundaries come
+    back (two fetches: the carry with their count, then the boundaries);
+    the ``partition_scan`` span of ``repro_torch.obs`` times the copy up,
+    the scan and both fetches."""
     deltas = gain_deltas_np(gaps)
     n = int(deltas.shape[0])
     if n == 0:
         return np.array([0], dtype=np.int64)
     with obs.span("partition_scan"):
-        carry, mask, pos = (
-            t.cpu().numpy()
-            for t in optimal_partitioning_scan(deltas, F=F, device=device)
-        )
-    _T, i, j, g, mn, mx, _k = carry.tolist()
-    return _close(pos[np.flatnonzero(mask)].tolist(), i, j, g, mn, mx, F, n)
+        carry, bounds = partition_scan_bounds(_deltas_on(deltas, device), F)
+        _T, i, j, g, mn, mx, _k, m = carry.tolist()
+        P = bounds[:m].tolist()
+    return _close(P, i, j, g, mn, mx, F, n)
 
 
 # ==========================================================================

@@ -2,8 +2,9 @@
 
 Counterpart of ``repro/kernels/gain_scan/kernel.py``, whose Pallas kernel
 walks the blocks in grid order and carries the running gain in a scalar
-scratch cell; the CUDA kernel reduces every block, scans the block sums
-and rewrites each block with its carry (see the note atop the source).
+scratch cell; the CUDA kernel scans tiles of blocks in one pass and takes
+each tile's carry from its predecessors by decoupled look-back (see the
+note atop the source).
 Same dispatch rule as ``vbyte_decode.kernel``: the plain version
 (``ref.py``) for CPU tensors, the kernel or an exception for CUDA tensors.
 """
@@ -35,11 +36,13 @@ def gain_scan(gaps):
     mn = torch.empty(nb, dtype=torch.int32, device=gaps.device)
     mx = torch.empty(nb, dtype=torch.int32, device=gaps.device)
     if nb:
-        sums = torch.empty(nb, dtype=torch.int32, device=gaps.device)
+        # the tile counter and a status word a tile (nb + 1 covers any
+        # tile size); the entry point zeroes what it uses
+        scratch = torch.empty(nb + 1, dtype=torch.int64, device=gaps.device)
         fn = _build.bind(_build.load("gain_scan"), "gain_scan", 5, 1)
         _build.check(
             fn(gaps.data_ptr(), g.data_ptr(), mn.data_ptr(), mx.data_ptr(),
-               sums.data_ptr(), nb,
+               scratch.data_ptr(), nb,
                torch.cuda.current_stream(gaps.device).cuda_stream),
             "gain_scan",
         )

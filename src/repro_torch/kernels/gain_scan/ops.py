@@ -29,8 +29,8 @@ def check_range(n: int, gap_sum: int) -> None:
     32-bit docID regime always fits; anything wider is refused up front."""
     if n and (gap_sum >= 2**31 or 40 * n >= 2**31):
         raise ValueError(
-            "gain_scan kernel requires universe < 2^31 and n < 2^26 "
-            "(32-bit docID regime); split the sequence first"
+            "gain_scan kernel requires universe < 2^31 and 40n < 2^31, "
+            "n <= 53,687,091 (32-bit docID regime); split the sequence first"
         )
 
 

@@ -187,8 +187,11 @@ def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel runs only there")
     rng = np.random.default_rng(5)
+    # the last: 2^14 + 3 blocks, more tiles than the card holds at once, so
+    # that the look-back waits on tiles still running
     for gaps in (_gaps(rng, 300_000, 0.5), np.full(5000, 2**20, np.int64),
-                 np.array(THRESHOLD_VALUES) + 1):
+                 np.array(THRESHOLD_VALUES) + 1,
+                 _gaps(rng, (2**14 + 3) * 1024, 0.5)):
         gp = torch.from_numpy(_padded(gaps))
         before = tk.gain_scan.launches
         got = tk.gain_scan(gp.cuda())
