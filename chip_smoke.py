@@ -52,7 +52,15 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    memory rate, or for ``partition_scan`` the larger of that and the chain
    its emissions form over the card's clock); for the two index-build
    kernels also their device time summed over the path's 256 per-list
-   launches;
+   launches.  ``decode_search`` is also held on launches of 1, 7, 9 and
+   2^20 + 3 cursors and timed on its cursors sorted by block, as the
+   engine sends them; ``ef_search`` is also held on edge tiles and probes,
+   and its bound counted from the lanes of ``lo`` its answers need (the
+   count that charges every tile's ``lo`` beside it), and decode_search's
+   from the bytes of its rows that hold values (the count that charges
+   every row all 512 B of ``data`` beside it); ``pivot_select`` and
+   ``pivot_score`` also get a device-only time (calls queued behind a spin
+   kernel);
 8. the ``kernels`` JSON line, then the result line.
 
 Phase 2 also reads the PTX of the two libraries that evaluate the f32
@@ -127,6 +135,16 @@ ONE_THREAD_SCAN_SPAN_S = 3.46
 # that the host's launch gaps fall before the first event (about 50 ms)
 SPIN_CYCLES = 100_000_000
 N_KERNELS = 10
+# the two NextGEQ kernels' times in their previous design (a warp a
+# cursor), on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), printed beside
+# this run's in the text lines only
+PREVIOUS_MS = {"decode_search": 0.4382, "ef_search": 1.5599}
+# cursor counts of decode_search launches that leave a warp's run of
+# cursors unfinished, and the edge tiles of ef_search
+SEARCH_TAILS = (1, 7, 9, (1 << 20) + 3)
+EF_EDGE_TILES = ("all-high-equal", "runs-of-one-l0", "runs-of-one-l15",
+                 "l0-full", "padded", "base-near-int-min", "base-near-int-max")
+DEVICE_REPS = 50  # calls queued behind the spin kernel for a device-only time
 # the recsys train phase: the full DCN-v2 config at its train_batch shape
 RECSYS_ARCH = "dcn-v2"
 RECSYS_SHAPE = "train_batch"
@@ -327,18 +345,19 @@ def span_ms() -> dict:
     return spans
 
 
-def profile_batches(torch, serve_batch, queries, card, label) -> None:
+def profile_batches(torch, serve_batch, queries, card, label) -> dict:
     """Where a batch's time goes, over PROFILE_BATCHES batches of
     ``serve_batch`` (see ``profile_calls``)."""
     batches = [queries[i : i + BATCH]
                for i in range(0, PROFILE_BATCHES * BATCH, BATCH)]
-    profile_calls(torch, [lambda b=b: serve_batch(b) for b in batches], card,
-                  label, "batches")
+    return profile_calls(torch, [lambda b=b: serve_batch(b) for b in batches],
+                         card, label, "batches")
 
 
-def profile_calls(torch, calls, card, label, unit) -> None:
+def profile_calls(torch, calls, card, label, unit) -> dict:
     """Device time per kernel from ``torch.profiler`` against the wall time
-    of ``calls``, and the host spans of ``repro_torch.obs``."""
+    of ``calls``, and the host spans of ``repro_torch.obs``; returns the
+    device ms by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -370,6 +389,12 @@ def profile_calls(torch, calls, card, label, unit) -> None:
           f"{json.dumps({k: round(v, 4) for k, v in top.items()})}")
     print(f"[chip_smoke] {label} profile host span ms: "
           f"{json.dumps({k: round(v, 1) for k, v in spans.items()})}", flush=True)
+    return dev
+
+
+def profile_ms(dev: dict, kernel: str) -> float:
+    """A kernel's device ms in a profile, summed over the names holding it."""
+    return sum(v for k, v in dev.items() if kernel in k)
 
 
 def kernel_row(launches, card, name, src, replaces, mism, err, ms, plain_ms,
@@ -399,9 +424,98 @@ def kernel_row(launches, card, name, src, replaces, mism, err, ms, plain_ms,
     }
 
 
-def check_kernels(torch, res, ef_engine, launches, card):
+def wrap32(x):
+    """int64 values (numpy or torch) narrowed to int32 as the reference's
+    int32 arithmetic wraps them."""
+    return (x + 2**31) % 2**32 - 2**31
+
+
+def ef_edge_cases(rng):
+    """(lo, hi, lbits, bases, rows, probes): the edge tiles of ef_search,
+    packed by ``ef_pack_blocks``, each with probes at hp = 0, hp = 255 and
+    hp > 255, at and below its base, that wrap past 2^31 in the rebase,
+    and on and one past 12 random lanes."""
+    from repro_torch.kernels.ef_search.ops import ef_pack_blocks
+
+    vals, bases = [], []
+    for kind in EF_EDGE_TILES:
+        base = int(rng.integers(-1, 50_000))
+        if kind == "all-high-equal":  # l = 15, every high part 200
+            r = (200 << 15) + np.sort(rng.choice(1 << 15, 128, replace=False))
+        elif kind == "runs-of-one-l0":  # l = 0, every high part distinct
+            r = np.sort(rng.choice(200, 128, replace=False))
+        elif kind == "runs-of-one-l15":  # l = 15, high parts 0, 2, .., 252, 255
+            r = ((np.append(np.arange(127) * 2, 255) << 15)
+                 + rng.integers(0, 1 << 15, 128))
+        elif kind == "l0-full":  # l = 0, high parts 0..127
+            r = np.arange(128)
+        elif kind == "padded":  # 40 values, then the last one repeated
+            r = np.sort(rng.choice(70_000, 40, replace=False))
+            r = np.append(r, np.full(88, r[-1]))
+        elif kind == "base-near-int-min":
+            base = -(2**31) + 10
+            r = np.sort(rng.choice(1 << 20, 128, replace=False))
+        else:  # base-near-int-max
+            r = np.sort(rng.choice(1 << 20, 128, replace=False))
+            base = I32_MAX - 2 - int(r[-1])
+        vals.append(base + 1 + r.astype(np.int64))
+        bases.append(base)
+    vals, bases = np.asarray(vals), np.asarray(bases, np.int64)
+    lo, hi, lbits = ef_pack_blocks(vals, bases)
+    rows, probes = [], []
+    for t, (v, base) in enumerate(zip(vals, bases)):
+        l = int(lbits[t])
+        top = base + 1 + (255 << l)
+        lanes = rng.integers(0, 128, 12)
+        p = [base - (1 << 20), base - 1, base, base + 1, base + (1 << l), top,
+             top + (1 << l) // 2, top + (1 << l) - 1, base + 1 + (256 << l),
+             base + 1 + (256 << l) + 77, I32_MAX, -(2**31), -(2**31) + 3,
+             I32_MAX - 5, *v[lanes], *(v[lanes] + 1)]
+        probes += [wrap32(int(x)) for x in p]
+        rows += [t] * len(p)
+    return lo, hi, lbits, bases, np.asarray(rows), np.asarray(probes)
+
+
+def ef_bounds(torch, args_ef, want_rank, n_tiles) -> dict:
+    """ef_search's bound, counted two ways (bytes over the memory rate).
+
+    What these inputs need: each tile a cursor searches, its 96 B of high
+    words; each tile, its l, base and codec row (12 B); each cursor, its
+    row, probe and results (16 B) and the lanes of lo the contract decides
+    on: the run of equal high parts [count_lt, count_le) and the answer
+    lane, none for a probe past the tile's high range.  The two counts
+    come from the plain version's ranks at hp << l and (hp + 1) << l.
+    The full-tile count charges every tile its 512 B of lo as well."""
+    from repro_torch.kernels.ef_search import ref as efref
+
+    lo, hi, lbits, block_base, rows, pe, codec_row = args_ef
+    r = rows.long()
+    base = block_base[r].long()
+    l = lbits[codec_row[r].long()].long()
+    hp = wrap32(pe.long() - base - 1).clamp(min=0) >> l
+    search = hp <= 255
+
+    def rank_at(h):
+        p = wrap32(base + 1 + (h.clamp(max=256) << l)).int()
+        return chunked(efref.ef_search_ref, len(rows), lo, hi, lbits,
+                       block_base, rows, p, codec_row, per_cursor=(4, 5))[1].long()
+
+    count_lt, count_le = rank_at(hp), rank_at(hp + 1)
+    lanes = torch.where(search, count_le - count_lt + (want_rank < 128).long(), 0)
+    searched = int(torch.unique(r[search]).numel())
+    nbytes = searched * 96 + n_tiles * 12 + len(rows) * 16 + 4 * int(lanes.sum())
+    old_bytes = n_tiles * (512 + 96 + 4 + 4 + 4) + len(rows) * (4 + 4 + 8)
+    return {"bytes": nbytes, "lo_lanes": int(lanes.sum()),
+            "searched_tiles": searched,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "full_tile_bytes": old_bytes,
+            "full_tile_bound_ms": old_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def check_kernels(torch, res, ef_engine, launches, card, profile):
     """Phase 7, the boolean kernels: each against its plain version;
-    returns their rows of the ``kernels`` line."""
+    returns their rows of the ``kernels`` line.  ``profile`` is the boolean
+    profile's device ms by name."""
     from repro_torch.core.arena import CODEC_EF
     from repro_torch.kernels.ef_search import kernel as efk
     from repro_torch.kernels.ef_search import ref as efref
@@ -412,19 +526,26 @@ def check_kernels(torch, res, ef_engine, launches, card):
     cuda = torch.device(DEVICE)
     rows_out = []
 
-    def report(*a):
-        rows_out.append(kernel_row(launches, card, *a))
+    def report(*a, **kw):
+        rows_out.append(kernel_row(launches, card, *a, **kw))
+
+    def on_card(*xs):
+        return [torch.from_numpy(np.asarray(x).astype(np.int32)).to(cuda)
+                for x in xs]
 
     # -- decode_search over >= 2^20 cursors of the main path's arena ------
     a = res["engine"].arena
     dev = a.on(cuda)
     svb = (np.nonzero(a.block_codec != CODEC_EF)[0] if a.multi
            else np.arange(a.n_blocks))
-    rows = svb[rng.integers(0, len(svb), SEARCH_CURSORS)]
-    pe = search_probes(rng, a, rows)
-    rows = rows.astype(np.int32)
-    t_rows, t_pe = (torch.from_numpy(x).to(cuda) for x in (rows, pe))
     cr = dev.codec_row if a.multi else None
+
+    def search_cursors(n):
+        rows = svb[rng.integers(0, len(svb), n)]
+        return rows.astype(np.int32), search_probes(rng, a, rows)
+
+    rows, pe = search_cursors(SEARCH_CURSORS)
+    t_rows, t_pe = on_card(rows, pe)
     args_ds = (dev.lens, dev.data, dev.block_base, t_rows, t_pe, cr)
     got = vk.decode_search(*args_ds)
     want = chunked(vref.decode_search_ref, len(rows), *args_ds,
@@ -436,15 +557,63 @@ def check_kernels(torch, res, ef_engine, launches, card):
             ((ln, np.int32), (dt, np.uint8), (bs, np.int32), (er, np.int32),
              (ep, np.int32))]
     m2, e2 = compare(vk.decode_search(*edge), vref.decode_search_ref(*edge))
+    # launches whose last warp stops inside its run of cursors
+    t0 = time.perf_counter()
+    tails = {}
+    for n in SEARCH_TAILS:
+        tr, tp = on_card(*search_cursors(n))
+        args_t = (dev.lens, dev.data, dev.block_base, tr, tp, cr)
+        m3, e3 = compare(vk.decode_search(*args_t),
+                         chunked(vref.decode_search_ref, n, *args_t,
+                                 per_cursor=(3, 4)))
+        tails[n] = m3
+        m2, e2 = m2 + m3, max(e2, e3)
+    tails_s = time.perf_counter() - t0
+    # the same cursors in the order the engine sends them: by block, then
+    # probe (a cursor on the row before it decodes nothing)
+    order = np.lexsort((pe, rows))
+    t_order = torch.from_numpy(order).to(cuda)
+    args_sorted = (*args_ds[:3], t_rows[t_order], t_pe[t_order], cr)
+    m3, e3 = compare(vk.decode_search(*args_sorted),
+                     tuple(w[t_order] for w in want))
+    m2, e2 = m2 + m3, max(e2, e3)
     ms = event_ms(lambda: vk.decode_search(*args_ds), 20)
+    sorted_ms = event_ms(lambda: vk.decode_search(*args_sorted), 20)
     plain_ms = event_ms(lambda: chunked(vref.decode_search_ref, len(rows),
                                         *args_ds, per_cursor=(3, 4)), 2)
-    u = len(np.unique(rows))
-    nbytes = u * (512 + 512 + 4 + (4 if a.multi else 0)) + len(rows) * (4 + 4 + 8)
+    # the bound: each row a cursor locates, its 512 B of lens, the bytes of
+    # its data that hold values (the sum of its lens), its base and codec
+    # row; each cursor, its row, probe and results (16 B).  The full-row
+    # count charges every row all 512 B of data.
+    u_rows = np.unique(rows)
+    u = len(u_rows)
+    t_u = torch.from_numpy(u_rows.astype(np.int64)).to(cuda)
+    used_u = int(dev.lens[t_u if cr is None else cr[t_u].long()].sum())
+    per_row = 512 + 4 + (4 if a.multi else 0)
+    nbytes = u * per_row + used_u + len(rows) * (4 + 4 + 8)
+    full_row_bytes = u * (per_row + 512) + len(rows) * (4 + 4 + 8)
+    full_row_ms = full_row_bytes / HBM_BYTES_PER_S * 1e3
+    # what the kernel stages for these cursors: each cursor's 512 B of lens
+    # and the 16-byte pieces of its row that hold values
+    used = dev.lens[t_rows.long() if cr is None else cr[t_rows.long()].long()].sum(1)
+    staged = int((512 + (used + 15) // 16 * 16).sum()) + len(rows) * (4 + 4 + 8)
+    prof = profile_ms(profile, "decode_search_kernel")
     report("decode_search", "src/repro_torch/csrc/vbyte_decode.cu",
            "src/repro/kernels/vbyte_decode/kernel.py:103",
            mism + m2, max(err, e2), ms, plain_ms, nbytes,
-           f"{len(rows):,} cursors on {u:,} rows + {len(er)} near-2^31 cursors")
+           f"{len(rows):,} cursors on {u:,} rows + {len(er)} near-2^31 cursors "
+           f"+ launches of {', '.join(f'{n:,}' for n in SEARCH_TAILS)} cursors "
+           f"({tails_s:.1f}s); {staged / 1e6:.1f} MB staged, "
+           f"{staged / ms / 1e9:.2f} TB/s; bound from {used_u / 1e6:.1f} MB "
+           f"of data, counting every row's 512 B {full_row_ms:.4f} ms; "
+           f"sorted by block {sorted_ms:.4f} ms; previous design "
+           f"{PREVIOUS_MS['decode_search']:.4f} ms; {prof:.4f} ms in the "
+           f"boolean profile's {PROFILE_BATCHES} batches",
+           note={"full_row_bound_ms": full_row_ms,
+                 "sorted_ms": sorted_ms,
+                 "staged_bytes": staged,
+                 "tail_mismatches": tails, "tails_s": tails_s,
+                 "boolean_profile_ms": prof})
 
     # -- decode_blocks over every row of the arena -------------------------
     got = vk.decode_blocks(dev.lens, dev.data)
@@ -474,20 +643,44 @@ def check_kernels(torch, res, ef_engine, launches, card):
     p2 = np.minimum(e.block_base[ef_blocks] + 1 + (256 << lb), I32_MAX)
     rows = np.concatenate([r1, r1])
     pe = np.concatenate([p1, p2.astype(np.int32)])
-    t_rows, t_pe = (torch.from_numpy(x).to(cuda) for x in (rows, pe))
+    t_rows, t_pe = on_card(rows, pe)
     args_ef = (edev.ef_lo, edev.ef_hi, edev.ef_lbits, edev.block_base, t_rows,
                t_pe, edev.codec_row)
     got = efk.ef_search(*args_ef)
     want = chunked(efref.ef_search_ref, len(rows), *args_ef, per_cursor=(4, 5))
     mism, err = compare(got, want)
+    # the edge tiles and probes, in launches of 1 to all of their cursors
+    t0 = time.perf_counter()
+    edge = ef_edge_cases(rng)
+    t_edge = on_card(*edge)
+    m2, e2, n_edge = 0, 0, len(edge[4])
+    for n in (1, 7, 9, n_edge):
+        args_e = (*t_edge[:4], t_edge[4][:n], t_edge[5][:n])
+        m3, e3 = compare(efk.ef_search(*args_e), efref.ef_search_ref(*args_e))
+        m2, e2 = m2 + m3, max(e2, e3)
+    edge_s = time.perf_counter() - t0
     ms = event_ms(lambda: efk.ef_search(*args_ef), 20)
     plain_ms = event_ms(lambda: chunked(efref.ef_search_ref, len(rows),
                                         *args_ef, per_cursor=(4, 5)), 2)
-    nbytes = len(ef_blocks) * (512 + 96 + 4 + 4 + 4) + len(rows) * (4 + 4 + 8)
+    t0 = time.perf_counter()
+    bounds = ef_bounds(torch, args_ef, want[1].long(), len(ef_blocks))
+    bounds_s = time.perf_counter() - t0
+    prof = profile_ms(profile, "ef_search_kernel")
     report("ef_search", "src/repro_torch/csrc/ef_search.cu",
            "src/repro/kernels/ef_search/kernel.py:119",
-           mism, err, ms, plain_ms, nbytes,
-           f"{len(rows):,} cursors on all {len(ef_blocks):,} EF tiles")
+           mism + m2, max(err, e2), ms, plain_ms, bounds["bytes"],
+           f"{len(rows):,} cursors on all {len(ef_blocks):,} EF tiles + "
+           f"{n_edge} edge cursors on {len(EF_EDGE_TILES)} edge tiles "
+           f"({edge_s:.1f}s); bound counted from {bounds['lo_lanes']:,} lanes "
+           f"of lo ({bounds_s:.1f}s), counting every tile's lo "
+           f"{bounds['full_tile_bound_ms']:.4f} ms; previous design "
+           f"{PREVIOUS_MS['ef_search']:.4f} ms; {prof:.4f} ms in the boolean "
+           f"profile's {PROFILE_BATCHES} batches",
+           note={"bytes_bound_ms": bounds["bound_ms"],
+                 "full_tile_bound_ms": bounds["full_tile_bound_ms"],
+                 "lo_lanes": bounds["lo_lanes"],
+                 "edge_cursors": n_edge, "edge_s": edge_s,
+                 "boolean_profile_ms": prof})
     torch.cuda.synchronize()
     return rows_out
 
@@ -630,8 +823,8 @@ def check_ranked_kernels(torch, rres, launches, card):
     side_bytes = n_lists * 4 + 256 * 4  # idf + table, read once
     rows_out = []
 
-    def report(*args):
-        rows_out.append(kernel_row(launches, card, *args))
+    def report(*args, **kw):
+        rows_out.append(kernel_row(launches, card, *args, **kw))
 
     # -- bm25_score_rows over every block: the impact mirror's launch ------
     got = bk.bm25_score_rows(*side, k1p1)
@@ -698,13 +891,16 @@ def check_ranked_kernels(torch, rres, launches, card):
     want = pref.pivot_select_ref(*args_s)
     mism, err = compare(got, want)
     ms = event_ms(lambda: pk.pivot_select(*args_s), 20)
+    dev_ms = device_ms(torch, lambda: pk.pivot_select(*args_s))
     plain_ms = event_ms(lambda: pref.pivot_select_ref(*args_s), 2)
     uc = len(np.unique(crow))
     report("pivot_select", "src/repro_torch/csrc/blockmax_pivot.cu",
            "src/repro/kernels/blockmax_pivot/kernel.py:107", mism, err, ms,
            plain_ms, uc * (512 + 4) + n * (4 + 512 + 512 + 12),
            f"{n:,} cursors on {uc:,} of {len(pc.nblk):,} chunks, "
-           f"{int(want[1].sum()):,} blocks kept")
+           f"{int(want[1].sum()):,} blocks kept; {ms:.4f} ms with the wrapper, "
+           f"{dev_ms:.4f} ms on the card alone",
+           note={"device_ms": dev_ms})
 
     # -- pivot_score: one PIVOT_SCORE_BUCKET launch --------------------------
     n = engine.PIVOT_SCORE_BUCKET
@@ -715,6 +911,7 @@ def check_ranked_kernels(torch, rres, launches, card):
     mism, err = compare(got[:4], want[:4])
     m2, err2 = compare_f32(got[4], want[4])
     ms = event_ms(lambda: sk.pivot_score(*args_f), 20)
+    dev_ms = device_ms(torch, lambda: sk.pivot_score(*args_f))
     plain_ms = event_ms(lambda: sref.pivot_score_ref(*args_f), 2)
     slot_rows = sref.slot_rows(pcd.base, t_crow[:n], want[0], nb)
     us = len(torch.unique(slot_rows))
@@ -724,7 +921,9 @@ def check_ranked_kernels(torch, rres, launches, card):
     report("pivot_score", "src/repro_torch/csrc/pivot_score.cu",
            "src/repro/kernels/pivot_score/kernel.py:64", mism + m2,
            max(err, err2), ms, plain_ms, nbytes,
-           f"{n:,} cursors, {16 * n:,} slots on {us:,} blocks")
+           f"{n:,} cursors, {16 * n:,} slots on {us:,} blocks; {ms:.4f} ms "
+           f"with the wrapper, {dev_ms:.4f} ms on the card alone",
+           note={"device_ms": dev_ms})
     torch.cuda.synchronize()
     return rows_out
 
@@ -886,6 +1085,14 @@ def summed_event_ms(torch, calls) -> float:
         stop.record()
     torch.cuda.synchronize()
     return sum(start.elapsed_time(stop) for start, stop in pairs)
+
+
+def device_ms(torch, fn, reps=DEVICE_REPS) -> float:
+    """Mean device time of ``fn()``, the wrapper's host time kept out:
+    ``reps`` calls queued behind the spin kernel, an event pair around each
+    (``summed_event_ms``), after one warm-up call."""
+    fn()
+    return summed_event_ms(torch, [fn] * reps) / reps
 
 
 def check_build_kernels(torch, gaps_all, launches, card):
@@ -1277,8 +1484,8 @@ def main(argv=None) -> int:
     }
     print(f"[chip_smoke] boolean path: {json.dumps(summary)}", flush=True)
 
-    profile_batches(torch, res["engine"].intersect_batch, res["queries"],
-                    card, "boolean")
+    bool_profile = profile_batches(torch, res["engine"].intersect_batch,
+                                   res["queries"], card, "boolean")
 
     # 5. the index build through the device partitioners, counted
     build_gaps, blaunches = run_build_path(
@@ -1310,7 +1517,8 @@ def main(argv=None) -> int:
                     rres["queries"], card, "ranked")
 
     # 7. each kernel against its plain version
-    kernels = check_kernels(torch, res, ef_engine, launches, card)
+    kernels = check_kernels(torch, res, ef_engine, launches, card,
+                            bool_profile)
     kernels += check_ranked_kernels(torch, rres, rlaunches, card)
     kernels += check_build_kernels(torch, build_gaps, blaunches, card)
     kernels.append(bag_row)

@@ -29,7 +29,7 @@ def ef_search(lo, hi, lbits, block_base, rows, pe, codec_row=None):
     if on_cpu(lo, hi, lbits, block_base, rows, pe, codec_row):
         return ref.ef_search_ref(lo, hi, lbits, block_base, rows, pe, codec_row)
     require(lo, "lo", torch.int32, BLOCK_VALS, align=16)
-    require(hi, "hi", torch.int32, EF_HI_WORDS, align=8)
+    require(hi, "hi", torch.int32, EF_HI_WORDS, align=16)
     require(lbits, "lbits", torch.int32, ndim=1)
     require(block_base, "block_base", torch.int32, ndim=1)
     require(rows, "rows", torch.int32, ndim=1)

@@ -2,7 +2,10 @@
 
 Tile packing is byte-identical; the plain PyTorch ``ef_search`` (what the
 wrapper runs for CPU tensors) is held exactly to the Pallas kernel in
-interpret mode and to ``ef_search_ref``; the CUDA kernel is held to the
+interpret mode and to ``ef_search_ref``.  A numpy emulation of the CUDA
+kernel's steps (select-0 for the run of equal high parts, bisection in its
+low parts, select-1 for the value's high part) is held to both, on random
+tiles and on edge tiles and probes; the CUDA kernel itself is held to the
 plain version on the card (``cuda`` marker).
 """
 
@@ -149,6 +152,136 @@ def test_ef_search_through_codec_row():
     assert got[1].tolist() == [77] * 5
 
 
+# -- the CUDA kernel's steps, emulated ---------------------------------------
+
+STREAM_BITS = 384
+
+
+def _wrap32(x):
+    return (int(x) + 2**31) % 2**32 - 2**31
+
+
+def _select(words, k, ones):
+    """Position of the k-th (0-based) one or zero bit of the 384-bit stream
+    (384 if none): the word from the popcounts, then the bit, as the
+    kernel's ``select_bit`` and its one ``__fns``."""
+    before = 0
+    for i, w in enumerate(words):
+        x = w if ones else ~w & 0xFFFFFFFF
+        cnt = bin(x).count("1")
+        if k < before + cnt:
+            set_bits = [b for b in range(32) if (x >> b) & 1]
+            return 32 * i + set_bits[k - before]
+        before += cnt
+    return STREAM_BITS
+
+
+def ef_search_emulated(lo, hi, l, base, probe):
+    """One cursor through ``csrc/ef_search.cu``'s steps: (value, rank, the
+    number of ``lo`` loads)."""
+    rp = max(_wrap32(int(probe) - int(base) - 1), 0)
+    hp = rp >> int(l)
+    if hp > 255:
+        return I32_MAX, 128, 0
+    lp = rp & ((1 << int(l)) - 1)
+    h = [int(x) & 0xFFFF for x in hi]
+    words = [h[2 * i] | (h[2 * i + 1] << 16) for i in range(12)]
+    count_lt = 0 if hp == 0 else _select(words, hp - 1, False) - (hp - 1)
+    count_le = _select(words, hp, False) - hp
+    a, b, loads = count_lt, min(count_le, 128), 0
+    while a < b:
+        m = (a + b) >> 1
+        loads += 1
+        if lo[m] < lp:
+            a = m + 1
+        else:
+            b = m
+    rc = min(a, 127)
+    high = _select(words, rc, True) - rc
+    value = _wrap32(int(base) + 1 + ((high << int(l)) | int(lo[rc])))
+    return (I32_MAX if a >= 128 else value), a, loads + 1
+
+
+def _edge_tile(kind, rng):
+    """(vals [128], base) of one edge tile."""
+    base = int(rng.integers(-1, 50_000))
+    if kind == "all-high-equal":  # l = 15, every high part 200
+        r = (200 << 15) + np.sort(rng.choice(1 << 15, 128, replace=False))
+    elif kind == "runs-of-one-l0":  # l = 0: high = r, all distinct
+        r = np.sort(rng.choice(200, 128, replace=False))
+    elif kind == "runs-of-one-l15":  # l = 15, high parts 0, 2, .., 252, 255
+        r = (np.append(np.arange(127) * 2, 255) << 15) + rng.integers(0, 1 << 15, 128)
+    elif kind == "l0-full":  # l = 0, the high parts 0..127
+        r = np.arange(128)
+    elif kind == "padded":  # 40 values, then the last one repeated
+        r = np.sort(rng.choice(70_000, 40, replace=False))
+        r = np.append(r, np.full(88, r[-1]))
+    elif kind == "base-near-int-min":  # rebased probes wrap below -2^31
+        base = -(2**31) + 10
+        r = np.sort(rng.choice(1 << 20, 128, replace=False))
+    elif kind == "base-near-int-max":  # rebased probes wrap above 2^31 - 1
+        r = np.sort(rng.choice(1 << 20, 128, replace=False))
+        base = I32_MAX - 2 - int(r[-1])
+    else:
+        raise ValueError(kind)
+    return base + 1 + r.astype(np.int64), base
+
+
+EDGE_TILES = ["all-high-equal", "runs-of-one-l0", "runs-of-one-l15", "l0-full",
+              "padded", "base-near-int-min", "base-near-int-max"]
+
+
+def _edge_probes(vals, base, l, rng):
+    """hp = 0, hp = 255 and hp > 255, probes <= base, probes that wrap past
+    2^31 in the rebase, each lane's value and one past it at random."""
+    top = base + 1 + (255 << l)
+    probes = [base - (1 << 20), base - 1, base, base + 1, base + 1 + (1 << l) - 1,
+              top, top + (1 << l) // 2, top + (1 << l) - 1,
+              base + 1 + (256 << l), base + 1 + (256 << l) + 77, I32_MAX,
+              -(2**31), -(2**31) + 3, I32_MAX - 5]
+    lanes = rng.integers(0, 128, 12)
+    probes += vals[lanes].tolist() + (vals[lanes] + 1).tolist()
+    return np.asarray([_wrap32(p) for p in probes], np.int64)
+
+
+def _case(case):
+    """(lo, hi, lbits, bases, rows, probes) of one parametrised case."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case.startswith("random"):
+        vals, bases = _tiles(int(case[-1]), UNIVERSES)
+        lo, hi, lbits = tops.ef_pack_blocks(vals, bases)
+        rows, probes = _cursors(vals, bases, lbits, rng)
+        return lo, hi, lbits, bases, rows, probes
+    vals, base = _edge_tile(case, rng)
+    lo, hi, lbits = tops.ef_pack_blocks(vals[None], np.asarray([base]))
+    probes = _edge_probes(vals, base, int(lbits[0]), rng)
+    return lo, hi, lbits, np.asarray([base]), np.zeros(len(probes), np.int64), probes
+
+
+@pytest.mark.parametrize("case", ["random-0", "random-1", "random-2", *EDGE_TILES])
+def test_emulated_kernel_matches_pallas_and_plain(case):
+    """The CUDA kernel's algorithm, step for step in numpy, gives the Pallas
+    kernel's (value, rank) on every cursor, and so does the plain version;
+    the bisection never takes more than 7 loads, plus one for the value."""
+    lo, hi, lbits, bases, rows, probes = _case(case)
+    got = [ef_search_emulated(lo[r], hi[r], lbits[r], bases[r], p)
+           for r, p in zip(rows, probes)]
+    assert max(g[2] for g in got) <= 8
+    pad = -len(rows) % 8  # the Pallas grid takes whole 8-row blocks
+    prow = np.concatenate([rows, np.repeat(rows[:1], pad)])
+    ppro = np.concatenate([probes, np.repeat(probes[:1], pad)])
+    want_v, want_r = (x[: len(rows)] for x in
+                      _pallas(lo, hi, lbits, bases, prow, ppro))
+    assert [g[0] for g in got] == want_v.tolist()
+    assert [g[1] for g in got] == want_r.tolist()
+    i32 = [torch.from_numpy(np.asarray(x).astype(np.int32))
+           for x in (lo, hi, lbits, bases, rows, probes)]
+    value, rank = tk.ef_search(*i32)
+    assert value.tolist() == want_v.tolist() and rank.tolist() == want_r.tolist()
+    if case in ("all-high-equal", "l0-full"):
+        assert (lbits == (15 if case == "all-high-equal" else 0)).all()
+
+
 @pytest.mark.cuda
 def test_cuda_ef_search_matches_plain_version():
     if not torch.cuda.is_available():
@@ -161,3 +294,12 @@ def test_cuda_ef_search_matches_plain_version():
     got = tk.ef_search(*[t.cuda() for t in cpu])
     for g, w in zip(got, tref.ef_search_ref(*cpu)):
         assert torch.equal(g.cpu(), w)
+    # the edge tiles and probes, and launches of 1 to 33 cursors
+    for case in EDGE_TILES:
+        lo, hi, lbits, bases, rows, probes = _case(case)
+        for n in (1, 7, 9, 32, 33):
+            cpu = [torch.from_numpy(np.asarray(x).astype(np.int32))
+                   for x in (lo, hi, lbits, bases, rows[:n], probes[:n])]
+            got = tk.ef_search(*[t.cuda() for t in cpu])
+            for g, w in zip(got, tref.ef_search_ref(*cpu)):
+                assert torch.equal(g.cpu(), w), (case, n)

@@ -202,6 +202,36 @@ def test_cpu_tensors_take_the_plain_version():
         tk.on_cpu(args[0], torch.empty(0, device="meta"))
 
 
+def _gather_words(lens_row, data_row):
+    """decode_search's staged decode (``svb_tile.cuh::gather_words``) in
+    numpy: each value from two aligned little-endian 32-bit words of the
+    staged slot, shifted and masked.  The slot holds the row's 16-byte
+    pieces below the sum of its lens; past them, and in its 16 bytes of
+    padding, lie stale bytes of an earlier row (junk here)."""
+    copied = -(-int(lens_row.sum()) // 16) * 16
+    padded = np.full(data_row.size + 16, 0xA5, np.uint8)
+    padded[:copied] = data_row[:copied]
+    words = padded.view("<u4").astype(np.uint64)
+    starts = np.cumsum(lens_row) - lens_row
+    at, sh = starts >> 2, (starts & 3) * 8
+    x = ((words[at] | (words[at + 1] << 32)) >> sh.astype(np.uint64)) & 0xFFFFFFFF
+    mask = np.where(lens_row >= 4, 0xFFFFFFFF, (1 << (8 * lens_row)) - 1)
+    return (x & mask.astype(np.uint64)).astype(np.uint32)
+
+
+@pytest.mark.parametrize("seed", [0, 3, 11])
+def test_word_gather_emulation_matches_plain_version(seed):
+    """The word-wise byte gather of the staged decode equals the plain
+    version's byte-wise one on rows of 1..4-byte values, the 4-byte-wide
+    rows and a row that fills all 512 bytes included."""
+    lens, data, _, _ = _arena(seed, nb=24)
+    lens[2] = 4  # 128 four-byte values: the row's bytes end at 512
+    want = tref.decode_blocks_ref(torch.from_numpy(lens), torch.from_numpy(data))
+    for r in range(lens.shape[0]):
+        got = _gather_words(lens[r].astype(np.int64), data[r])
+        assert np.array_equal(got.view(np.int32), want[r].numpy()), r
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
     if not torch.cuda.is_available():
@@ -218,3 +248,9 @@ def test_cuda_kernels_match_plain_versions():
                        tref.decode_blocks_ref(cpu[0], cpu[1], cpu[3]))
     for g, w in zip(tk.decode_search(*gpu), tref.decode_search_ref(*cpu)):
         assert torch.equal(g.cpu(), w)
+    # cursor counts that leave the last warp inside its run of cursors
+    for n in (1, 7, 9, 33, 1027, len(rows) - 3):
+        got = tk.decode_search(*gpu[:3], gpu[3][:n], gpu[4][:n])
+        want = tref.decode_search_ref(*cpu[:3], cpu[3][:n], cpu[4][:n])
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), n
