@@ -58,14 +58,17 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    and its bound counted from the lanes of ``lo`` its answers need (the
    count that charges every tile's ``lo`` beside it), and decode_search's
    from the bytes of its rows that hold values (the count that charges
-   every row all 512 B of ``data`` beside it); ``pivot_select`` and
-   ``pivot_score`` also get a device-only time (calls queued behind a spin
-   kernel);
+   every row all 512 B of ``data`` beside it); ``pivot_select``,
+   ``pivot_score`` and ``embedding_bag`` also get a device-only time (calls
+   queued behind a spin kernel), and ``pivot_select`` and ``embedding_bag``
+   their wrappers' host time and edge launches (``pivot_edge_cases``,
+   ``bag_edge_cases``);
 8. the ``kernels`` JSON line, then the result line.
 
-Phase 2 also reads the PTX of the two libraries that evaluate the f32
-BM25 contract and fails on a contracted multiply-add (``fma.rn.f32``) or
-an approximate division (``div.approx`` / ``div.full.f32``).
+Phase 2 also reads the PTX of the three libraries that evaluate an f32
+contract (BM25's; the bag's k-ordered sum) and fails on a contracted
+multiply-add (``fma.rn.f32``) or an approximate division (``div.approx`` /
+``div.full.f32``).
 
 Exits non-zero, before the result line, if any phase fails, if there is no
 CUDA card, or if the port's sources are not beside this script.
@@ -103,9 +106,10 @@ CONTRIB_PAIRS = 4096  # (term, doc) pairs through contributions()
 PROBE_CURSORS = 1 << 20  # bm25_score_probe cursors held to the plain version
 LIBS = ["vbyte_decode", "ef_search", "bm25_score", "blockmax_pivot",
         "pivot_score", "gain_scan", "partition_scan", "embedding_bag"]
-# the libraries that evaluate the f32 BM25 contract, and what their PTX
-# must not hold: a contracted multiply-add or an approximate division
-F32_LIBS = ["bm25_score", "pivot_score"]
+# the libraries that evaluate an f32 contract (BM25's, the bag's k-ordered
+# sum), and what their PTX must not hold: a contracted multiply-add or an
+# approximate division
+F32_LIBS = ["bm25_score", "pivot_score", "embedding_bag"]
 PTX_FORBIDDEN = ["fma.rn.f32", "div.approx", "div.full.f32"]
 EF_BATCHES = 3  # batches served through the ef arena of the same index
 CHECK_QUERIES = 64  # batched answers checked against the scalar loop
@@ -135,16 +139,32 @@ ONE_THREAD_SCAN_SPAN_S = 3.46
 # that the host's launch gaps fall before the first event (about 50 ms)
 SPIN_CYCLES = 100_000_000
 N_KERNELS = 10
-# the two NextGEQ kernels' times in their previous design (a warp a
-# cursor), on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), printed beside
-# this run's in the text lines only
-PREVIOUS_MS = {"decode_search": 0.4382, "ef_search": 1.5599}
+# four kernels' times in their previous design, on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md), printed beside this run's in the text lines
+# only: the two NextGEQ kernels' (a warp a cursor; events),
+# pivot_select's (scattered stores; on the card alone) and
+# embedding_bag's (a block staging 16 bags; on the card alone, from
+# kernel_ab.py)
+PREVIOUS_MS = {"decode_search": 0.4382, "ef_search": 1.5599,
+               "pivot_select": 0.0156, "embedding_bag": 0.0609}
 # cursor counts of decode_search launches that leave a warp's run of
 # cursors unfinished, and the edge tiles of ef_search
 SEARCH_TAILS = (1, 7, 9, (1 << 20) + 3)
 EF_EDGE_TILES = ("all-high-equal", "runs-of-one-l0", "runs-of-one-l15",
                  "l0-full", "padded", "base-near-int-min", "base-near-int-max")
 DEVICE_REPS = 50  # calls queued behind the spin kernel for a device-only time
+# a wrapper's host time: the least of HOST_ROUNDS runs of HOST_REPS calls
+HOST_REPS = 200
+HOST_ROUNDS = 5
+# embedding_bag's edge launches: every D and K of these, B bags (not a
+# multiple of the 8 bags a warp takes at D <= 16) over V rows
+BAG_EDGE_D = (1, 3, 16, 17, 128, 300)
+BAG_EDGE_K = (1, 33, 64, 65)
+BAG_EDGE_B = 1003
+BAG_EDGE_V = 4099
+# pivot_select's edge launches: cursor counts that leave a block's 8 warps
+# unfilled, and the path's largest launch (MAX_BUCKET) plus 3
+PIVOT_EDGE_N = (1, 7, 8, 9, 33, (1 << 14) + 3)
 # the recsys train phase: the full DCN-v2 config at its train_batch shape
 RECSYS_ARCH = "dcn-v2"
 RECSYS_SHAPE = "train_batch"
@@ -686,8 +706,8 @@ def check_kernels(torch, res, ef_engine, launches, card, profile):
 
 
 def check_ptx(build) -> None:
-    """Phase 2: the f32 BM25 contract survives compilation -- no FMA
-    contraction, no approximate division in the PTX of its libraries."""
+    """Phase 2: the f32 contracts survive compilation -- no FMA
+    contraction, no approximate division in the PTX of their libraries."""
     for name in F32_LIBS:
         text = build.ptx(name)
         found = [w for w in PTX_FORBIDDEN if w in text]
@@ -798,14 +818,44 @@ def run_ranked_path(n_queries, torch, serve, counters, card):
     return res, mirror, (terms, docs), launches
 
 
-def check_ranked_kernels(torch, rres, launches, card):
+def pivot_edge_cases(torch) -> int:
+    """pivot_select against its plain version on launches of PIVOT_EDGE_N
+    cursors over 64 chunk rows, among them rows of nblk 0, 1, 127 and 128
+    and one whose every lane ties at the max, under qmin tiles all 0, all
+    QMIN_NONE and drawn; returns the cursors checked, fails on any
+    mismatch."""
+    from repro_torch.kernels.blockmax_pivot import kernel as pk
+    from repro_torch.kernels.blockmax_pivot import ref as pref
+
+    rng = np.random.default_rng(5)
+    nc = 64
+    qb = rng.integers(0, 256, (nc, 128))
+    nblk = rng.integers(0, 129, nc)
+    nblk[:5] = (0, 1, 127, 128, 128)
+    qb[4] = 77
+    table = [torch.from_numpy(x.astype(np.int32)).to(DEVICE) for x in (qb, nblk)]
+    for n in PIVOT_EDGE_N:
+        rows = rng.integers(0, nc, n)
+        rows[: min(n, 15)] = np.arange(min(n, 15)) % 5
+        qmin = rng.integers(0, pk.QMIN_NONE + 1, (n, 128))
+        qmin[0::3], qmin[1::3] = 0, pk.QMIN_NONE
+        args = (*table, *(torch.from_numpy(x.astype(np.int32)).to(DEVICE)
+                          for x in (qmin, rows)))
+        mism, _ = compare(pk.pivot_select(*args), pref.pivot_select_ref(*args))
+        if mism:
+            fail(f"pivot_select: {mism} of {n} edge cursors differ from the "
+                 "plain version")
+    return sum(PIVOT_EDGE_N)
+
+
+def check_ranked_kernels(torch, rres, launches, card, profile):
     """Phase 7, the ranked kernels: each against its plain version at the
-    ranked path's largest launch shapes; returns their rows of the
-    ``kernels`` line."""
+    ranked path's largest launch shapes (``pivot_select`` also on its edge
+    launches); ``profile``: the ranked profile's device ms by name; returns
+    their rows of the ``kernels`` line."""
     from repro_torch.core.arena import CODEC_EF
     from repro_torch.core.engine_core import build_pivot_chunks
     from repro_torch.kernels.blockmax_pivot import kernel as pk
-    from repro_torch.kernels.embedding_bag import kernel as ebk
     from repro_torch.kernels.blockmax_pivot import ref as pref
     from repro_torch.kernels.bm25_score import kernel as bk
     from repro_torch.kernels.bm25_score import ref as bref
@@ -892,15 +942,27 @@ def check_ranked_kernels(torch, rres, launches, card):
     mism, err = compare(got, want)
     ms = event_ms(lambda: pk.pivot_select(*args_s), 20)
     dev_ms = device_ms(torch, lambda: pk.pivot_select(*args_s))
+    wrap_us = host_us(torch, lambda: pk.pivot_select(*args_s))
     plain_ms = event_ms(lambda: pref.pivot_select_ref(*args_s), 2)
+    t0 = time.perf_counter()
+    n_edge = pivot_edge_cases(torch)
+    edge_s = time.perf_counter() - t0
+    prof = profile_ms(profile, "pivot_select_kernel")
     uc = len(np.unique(crow))
     report("pivot_select", "src/repro_torch/csrc/blockmax_pivot.cu",
            "src/repro/kernels/blockmax_pivot/kernel.py:107", mism, err, ms,
            plain_ms, uc * (512 + 4) + n * (4 + 512 + 512 + 12),
            f"{n:,} cursors on {uc:,} of {len(pc.nblk):,} chunks, "
-           f"{int(want[1].sum()):,} blocks kept; {ms:.4f} ms with the wrapper, "
-           f"{dev_ms:.4f} ms on the card alone",
-           note={"device_ms": dev_ms})
+           f"{int(want[1].sum()):,} blocks kept, + {n_edge:,} edge cursors "
+           f"in launches of {', '.join(f'{e:,}' for e in PIVOT_EDGE_N)} "
+           f"({edge_s:.1f}s); {ms:.4f} ms with the wrapper, {dev_ms:.4f} ms "
+           f"on the card alone, the wrapper's host time {wrap_us:.1f} us; "
+           f"previous design {PREVIOUS_MS['pivot_select']:.4f} ms on the card "
+           f"alone; {prof:.4f} ms in the ranked profile's {PROFILE_BATCHES} "
+           f"batches",
+           note={"device_ms": dev_ms, "host_us": wrap_us,
+                 "edge_cursors": n_edge, "edge_s": edge_s,
+                 "ranked_profile_ms": prof})
 
     # -- pivot_score: one PIVOT_SCORE_BUCKET launch --------------------------
     n = engine.PIVOT_SCORE_BUCKET
@@ -1095,6 +1157,22 @@ def device_ms(torch, fn, reps=DEVICE_REPS) -> float:
     return summed_event_ms(torch, [fn] * reps) / reps
 
 
+def host_us(torch, fn, reps=HOST_REPS, rounds=HOST_ROUNDS) -> float:
+    """Host microseconds of ``fn()``: the host's clock around ``reps``
+    calls, the card synchronized before the first and after the clock
+    stops, the least mean of ``rounds`` such runs (the one the host's other
+    work disturbed least)."""
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / reps)
+        torch.cuda.synchronize()
+    return best * 1e6
+
+
 def check_build_kernels(torch, gaps_all, launches, card):
     """Phase 7, the index-build kernels: gain_scan on every list and on one
     launch at its range guard, partition_scan on the largest list and on
@@ -1238,8 +1316,8 @@ def dcn_train_flops(cfg, batch: int) -> float:
 
 
 def run_recsys_path(torch, counters, card):
-    """Phase 3; returns (the run's result, launches).  Two more steps are
-    traced after the checks."""
+    """Phase 3; returns (the run's result, launches, the device ms by name
+    of two more steps, traced after the checks)."""
     from repro_torch import convert
     from repro_torch.configs import get_arch
     from repro_torch.examples import train_recsys as ex
@@ -1338,18 +1416,77 @@ def run_recsys_path(torch, counters, card):
           f"{SMOKE_BATCH} on the card equal the CPU's (losses within rtol "
           f"1e-5, parameters within {worst:.3f} of atol 1e-5 + rtol 1e-4)",
           flush=True)
-    profile_calls(torch, [lambda s=s: ex.train_step(res["state"], s, batch)
-                          for s in range(steps, steps + RECSYS_PROFILE)],
-                  card, "recsys", "steps")
-    return res, launches
+    prof = profile_calls(torch, [lambda s=s: ex.train_step(res["state"], s, batch)
+                                 for s in range(steps, steps + RECSYS_PROFILE)],
+                         card, "recsys", "steps")
+    return res, launches, prof
 
 
-def check_recsys_kernels(torch, res, launches, card):
+def bag_edge_cases(torch) -> dict:
+    """embedding_bag against its plain version, bit for bit, at the edges
+    of its tiling: B = BAG_EDGE_B bags of every K of BAG_EDGE_K over every
+    D of BAG_EDGE_D, f32 and bf16 tables, with ids -1 and V planted, a +inf
+    and a -inf row read under zero weights in every seventh bag and a third
+    of the weights 0; then tables and ids off their vector alignment (the
+    scalar paths).  Returns the mismatches by case; fails on any."""
+    from repro_torch.kernels.embedding_bag import kernel as ek
+    from repro_torch.kernels.embedding_bag import ref as eref
+
+    rng = np.random.default_rng(4)
+    B, V = BAG_EDGE_B, BAG_EDGE_V
+    cases = {}
+
+    def on_card(x):
+        return torch.from_numpy(x).to(DEVICE)
+
+    def inputs(K, D):
+        table = rng.normal(size=(V, D)).astype(np.float32)
+        table[5], table[6] = np.inf, -np.inf
+        ids = rng.integers(0, V, (B, K))
+        ids[ids == 5] = 7  # the inf rows only where planted
+        ids[ids == 6] = 8
+        w = rng.normal(size=(B, K)).astype(np.float32)
+        w[rng.random((B, K)) < 1 / 3] = 0.0
+        ids[0::2, 0], ids[1::2, K - 1] = -1, V
+        ids[3::7, K // 2] = np.where(np.arange(len(ids[3::7])) % 2, 5, 6)
+        w[3::7, K // 2] = 0.0
+        return on_card(table), on_card(ids.astype(np.int32)), on_card(w)
+
+    def check(name, t, i, w):
+        mism, _ = compare_f32(ek.embedding_bag(t, i, w),
+                              eref.embedding_bag_ref(t, i, w))
+        cases[name] = mism
+
+    for D in BAG_EDGE_D:
+        for K in BAG_EDGE_K:
+            table, ids, w = inputs(K, D)
+            check(f"f32 D={D} K={K}", table, ids, w)
+            check(f"bf16 D={D} K={K}", table.bfloat16(), ids, w)
+    table, ids, w = inputs(64, 16)
+
+    def shifted(x, by):  # the same values, `by` elements past an aligned start
+        flat = torch.empty(x.numel() + by, dtype=x.dtype, device=x.device)
+        flat[by:] = x.reshape(-1)
+        return flat[by:].view(x.shape)
+
+    check("f32 table 4 B past 16 B", shifted(table, 1), ids, w)
+    check("ids and weights 4 B past 16 B", table, shifted(ids, 1), shifted(w, 1))
+    check("bf16 table 2 B past 8 B", shifted(table.bfloat16(), 1), ids, w)
+    check("bf16 table 8 B past 16 B", shifted(table.bfloat16(), 4), ids, w)
+    bad = {k: v for k, v in cases.items() if v}
+    if bad:
+        fail(f"embedding_bag: edge launches differ from the plain version: {bad}")
+    return cases
+
+
+def check_recsys_kernels(torch, res, launches, card, profile):
     """Phase 7, ``embedding_bag``: against its plain version at the path's
     shape (the last step's ids and mask over the first field's rows), on
-    the table padded to the reference's 128 columns, on a bf16 table and
-    with out-of-range ids planted; timed beside its bound and beside
-    ``F.embedding_bag`` (the same function, timed as a yardstick only);
+    the table padded to the reference's 128 columns, on a bf16 table, with
+    out-of-range ids planted and on its edge launches (``bag_edge_cases``);
+    timed with its wrapper, on the card alone and on the host, beside its
+    bound and beside ``F.embedding_bag`` (the same function, timed as a
+    yardstick only); ``profile``: the recsys profile's device ms by name;
     returns its row of the ``kernels`` line."""
     import torch.nn.functional as F
 
@@ -1384,7 +1521,12 @@ def check_recsys_kernels(torch, res, launches, card):
     if not checks["padded D=128"]["equals the unpadded bag"]:
         fail("embedding_bag: the padded table's bag differs from the "
              "unpadded one")
+    t0 = time.perf_counter()
+    edges = bag_edge_cases(torch)
+    edge_s = time.perf_counter() - t0
     ms = event_ms(lambda: ek.embedding_bag(table, ids, w), 20)
+    dev_ms = device_ms(torch, lambda: ek.embedding_bag(table, ids, w))
+    wrap_us = host_us(torch, lambda: ek.embedding_bag(table, ids, w))
     plain_ms = event_ms(lambda: eref.embedding_bag_ref(table, ids, w), 3)
     lib = F.embedding_bag(ids, table, per_sample_weights=w, mode="sum")
     lib_ms = event_ms(lambda: F.embedding_bag(ids, table, per_sample_weights=w,
@@ -1394,19 +1536,34 @@ def check_recsys_kernels(torch, res, launches, card):
     rows = len(torch.unique(eref.clamp_ids(ids, V)))
     nbytes = rows * D * 4 + B * K * 8 + B * D * 4
     gathered = B * K * D * 4
+    items = int((w != 0).sum()) * D * 4  # the rows of real items, not padding
     mism = sum(c["mismatches"] for c in checks.values())
     err = max(c["max_abs_err"] for c in checks.values())
+    prof = profile_ms(profile, "bag_kernel")
     return kernel_row(
         launches, card, "embedding_bag", "src/repro_torch/csrc/embedding_bag.cu",
         "src/repro/kernels/embedding_bag/kernel.py:38", mism, err, ms,
         plain_ms, nbytes,
-        f"B={B:,} K={K} D={D} over {rows:,} distinct rows ({gathered/1e6:.1f} "
-        f"MB gathered, {gathered / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM "
-        f"rate); padded D=128 {ms128:.4f} ms; F.embedding_bag {lib_ms:.4f} ms, "
-        f"max |diff| {lib_err:.3e}",
-        note={"library_ms": lib_ms, "library_max_abs_diff": lib_err,
-              "gathered_bytes": gathered, "distinct_rows": rows,
-              "padded_d128_ms": ms128, "checks": checks})
+        f"B={B:,} K={K} D={D} over {rows:,} distinct rows, + {len(edges)} "
+        f"edge launches ({edge_s:.1f}s); {ms:.4f} ms with the wrapper, "
+        f"{dev_ms:.4f} ms on the card alone, the wrapper's host time "
+        f"{wrap_us:.1f} us; {gathered/1e6:.1f} MB gathered, "
+        f"{gathered / dev_ms / 1e9:.2f} TB/s on the card alone "
+        f"({gathered / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM rate), "
+        f"{items/1e6:.1f} MB of them the items' rows, "
+        f"{items / dev_ms / 1e9:.2f} TB/s; "
+        f"previous design {PREVIOUS_MS['embedding_bag']:.4f} ms on the card "
+        f"alone; padded D=128 {ms128:.4f} ms; F.embedding_bag "
+        f"{lib_ms:.4f} ms, max |diff| {lib_err:.3e}; {prof:.4f} ms in the "
+        f"recsys profile's {RECSYS_PROFILE} steps",
+        note={"device_ms": dev_ms, "host_us": wrap_us,
+              "library_ms": lib_ms, "library_max_abs_diff": lib_err,
+              "gathered_bytes": gathered,
+              "gathered_tb_per_s": gathered / dev_ms / 1e9,
+              "item_bytes": items, "item_tb_per_s": items / dev_ms / 1e9,
+              "distinct_rows": rows, "padded_d128_ms": ms128,
+              "checks": checks, "edge_launches": len(edges),
+              "edge_s": edge_s, "recsys_profile_ms": prof})
 
 
 def main(argv=None) -> int:
@@ -1459,10 +1616,10 @@ def main(argv=None) -> int:
 
     # 3. the recsys trainer at full width, counted; embedding_bag's check
     # runs while the path's tensors are alive, then they are freed
-    rec_res, rec_launches = run_recsys_path(
+    rec_res, rec_launches, rec_prof = run_recsys_path(
         torch, {"embedding_bag": ebk.embedding_bag, "decode_blocks":
                 vk.decode_blocks}, card)
-    bag_row = check_recsys_kernels(torch, rec_res, rec_launches, card)
+    bag_row = check_recsys_kernels(torch, rec_res, rec_launches, card, rec_prof)
     del rec_res
     torch.cuda.empty_cache()
 
@@ -1513,13 +1670,14 @@ def main(argv=None) -> int:
     }
     print(f"[chip_smoke] ranked path: {json.dumps(rsummary)}", flush=True)
     reng = rres["engine"]
-    profile_batches(torch, lambda b: reng.topk_batch(b, TOPK),
-                    rres["queries"], card, "ranked")
+    ranked_profile = profile_batches(torch, lambda b: reng.topk_batch(b, TOPK),
+                                     rres["queries"], card, "ranked")
 
     # 7. each kernel against its plain version
     kernels = check_kernels(torch, res, ef_engine, launches, card,
                             bool_profile)
-    kernels += check_ranked_kernels(torch, rres, rlaunches, card)
+    kernels += check_ranked_kernels(torch, rres, rlaunches, card,
+                                    ranked_profile)
     kernels += check_build_kernels(torch, build_gaps, blaunches, card)
     kernels.append(bag_row)
     if len(kernels) != N_KERNELS:

@@ -19,6 +19,17 @@ from . import ref
 # qmin == QMIN_NONE prunes the lane unconditionally
 QMIN_NONE = 256
 
+_ENTRY = None
+
+
+def _entry():
+    """The bound C entry point, built and bound at the first launch."""
+    global _ENTRY
+    if _ENTRY is None:
+        _ENTRY = _build.bind(_build.load("blockmax_pivot"),
+                             "blockmax_pivot_select", 6, 1)
+    return _ENTRY
+
 
 def pivot_select(qb, nblk, qmin, rows):
     """Keep-test + compaction + pivot: (compact [n,128], count [n],
@@ -38,19 +49,22 @@ def pivot_select(qb, nblk, qmin, rows):
     if nblk.shape[0] != qb.shape[0] or qmin.shape[0] != rows.shape[0]:
         raise ValueError("one nblk per chunk and one qmin tile per cursor")
     n = rows.shape[0]
-    out = torch.empty((n, BLOCK_VALS), dtype=torch.int32, device=rows.device)
-    aux = torch.empty((n, 3), dtype=torch.int32, device=rows.device)
+    # out [n, 128] then aux [n, 3] in one allocation (out 16-byte aligned,
+    # as the kernel's int4 stores need), cut into the four results by as
+    # few tensor ops as will do: the wrapper's host time is most of a call
+    a = n * BLOCK_VALS
+    buf = torch.empty(a + 3 * n, dtype=torch.int32, device=rows.device)
     if n:
-        fn = _build.bind(_build.load("blockmax_pivot"),
-                         "blockmax_pivot_select", 6, 1)
+        out = buf.data_ptr()
         _build.check(
-            fn(qb.data_ptr(), nblk.data_ptr(), qmin.data_ptr(),
-               rows.data_ptr(), out.data_ptr(), aux.data_ptr(), n,
-               torch.cuda.current_stream(rows.device).cuda_stream),
+            _entry()(qb.data_ptr(), nblk.data_ptr(), qmin.data_ptr(),
+                     rows.data_ptr(), out, out + 4 * a, n,
+                     torch.cuda.current_stream(rows.device).cuda_stream),
             "blockmax_pivot_select",
         )
         pivot_select.launches += 1
-    return out, aux[:, 0], aux[:, 1], aux[:, 2]
+    return (buf[:a].view(n, BLOCK_VALS), buf[a::3], buf[a + 1 :: 3],
+            buf[a + 2 :: 3])
 
 
 pivot_select.launches = 0

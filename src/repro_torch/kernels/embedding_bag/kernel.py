@@ -2,8 +2,9 @@
 
 Counterpart of ``repro/kernels/embedding_bag/kernel.py::embedding_bag``,
 whose Pallas kernel streams one table row per (b, k) grid step through a
-scalar-prefetched id; the CUDA kernel stages each bag's ids and weights in
-shared memory and sums its rows in k order (see the note atop the source).
+scalar-prefetched id; in the CUDA kernel a warp sums several bags at once,
+4 lanes a row, each bag's ids and weights handed out by shuffles, and
+sums each column in k order (see the note atop the source).
 Same dispatch rule as ``vbyte_decode.kernel``: the plain version
 (``ref.py``) for CPU tensors, the kernel or an exception for CUDA tensors.
 

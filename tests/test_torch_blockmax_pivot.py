@@ -161,6 +161,67 @@ def test_pivot_chunks_match_reference():
     assert np.array_equal(count.numpy(), got.nblk)
 
 
+def _ballot(pred):
+    """__ballot_sync over the 32 lanes: bit t set when lane t's pred is."""
+    return int(sum(int(p) << t for t, p in enumerate(pred)))
+
+
+def _emulate_kernel(qb, nblk, qmin, rows, rng):
+    """The CUDA kernel's steps in numpy, a warp a cursor: the keep test's
+    ballots and popc prefix put each kept lane at its slot of a
+    warp-private 128-int buffer, whose other slots hold whatever shared
+    memory held (``rng``'s junk); lane t then stores slots 4t .. 4t+3 as
+    one int4, -1 at and past the count.  Returns (out, aux [n, 3])."""
+    n = len(rows)
+    out = np.zeros((n, 128), np.int64)
+    aux = np.zeros((n, 3), np.int64)
+    lane = np.arange(32)
+    four = 4 * lane[:, None] + np.arange(4)  # lane t holds chunk lanes 4t..
+    for c, r in enumerate(rows):
+        q4, m4 = qb[r].reshape(32, 4), qmin[c].reshape(32, 4)
+        keep = (q4 >= m4) & (four < nblk[r])
+        ball = [_ballot(keep[:, e]) for e in range(4)]
+        count = sum(bin(b).count("1") for b in ball)
+        buf = rng.integers(-2**31, 2**31, 128)
+        for t in lane:
+            slot = sum(bin(b & ((1 << t) - 1)).count("1") for b in ball)
+            for e in range(4):
+                if keep[t, e]:
+                    buf[slot] = 4 * t + e
+                    slot += 1
+        o = buf.reshape(32, 4).copy()
+        o[four >= count] = -1
+        out[c] = o.reshape(-1)
+        maxq = int(np.where(keep, q4, -1).max())
+        pivot = 2**31 - 1
+        for e in range(4):
+            b = _ballot(keep[:, e] & (q4[:, e] == maxq))
+            if b:  # __ffs: the lowest lane set
+                pivot = min(pivot, 4 * ((b & -b).bit_length() - 1) + e)
+        aux[c] = count, pivot if count else -1, maxq
+    return out, aux
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 33, 300])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_emulated_kernel_matches_plain_version(n, seed):
+    """The kernel's shared-buffer compaction and int4 store layout, held to
+    the plain version over _tiles()'s edge rows (qmin all 0 and all
+    QMIN_NONE, nblk 0 and 128, a row tied at its max), in launches that
+    leave a block's 8 warps unfilled."""
+    qb, qmin, nblk = _tiles(n + seed)
+    rng = np.random.default_rng(n + seed)
+    rows = rng.integers(0, len(qb), n)
+    rows[: min(n, 3)] = [0, 1, 2][: min(n, 3)]
+    rows[-1] = len(qb) - 1
+    qm = qmin[rows]
+    out, aux = _emulate_kernel(qb, nblk, qm, rows, rng)
+    want = tk.pivot_select(*(torch.from_numpy(x.astype(np.int32))
+                             for x in (qb, nblk, qm, rows)))
+    for g, w in zip((out, aux[:, 0], aux[:, 1], aux[:, 2]), want):
+        assert np.array_equal(g, w.numpy())
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
@@ -180,3 +241,16 @@ def test_cuda_kernel_matches_plain_version():
     assert tk.pivot_select.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+    # launches that leave a block's 8 warps unfilled, and the path's
+    # largest plus 3, over chunk rows of nblk 0, 1, 127 and 128
+    nblk[:4] = (0, 1, 127, 128)
+    for n in (1, 7, 8, 9, 33, (1 << 14) + 3):
+        rows = rng.integers(0, nc, n).astype(np.int32)
+        rows[: min(n, 12)] = np.arange(min(n, 12)) % 4
+        qmin = rng.integers(0, QMIN_NONE + 1, (n, 128)).astype(np.int32)
+        qmin[0::3], qmin[1::3] = 0, QMIN_NONE
+        cpu = [torch.from_numpy(x) for x in (qb, nblk, qmin, rows)]
+        want = tk.pivot_select(*cpu)
+        got = tk.pivot_select(*(t.cuda() for t in cpu))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)

@@ -158,6 +158,131 @@ def test_inputs_the_kernel_does_not_take_are_refused(bad):
         tk.embedding_bag(*bad(table, ids, torch.ones((2, 3))))
 
 
+# the CUDA kernel's tiling (csrc/embedding_bag.cu): a unit is one bag's
+# group of 4 * VEC columns and UNIT_LANES lanes, a warp takes UNITS units,
+# each pass CHUNK k slots whose ids and weights the unit's lanes hold 4 each
+UNIT_LANES, UNITS, CHUNK = 4, 8, 16
+EDGE_D = (1, 3, 16, 17, 128, 300)
+EDGE_K = (1, 33, 64, 65)
+EDGE_B = 19  # not a multiple of the 8 bags a warp takes at D <= 16
+
+
+def _edge_inputs(rng, B, K, V, D):
+    """Inputs at the kernel's edges: ids -1 and V planted, a +inf and a -inf
+    row read under zero weights in every seventh bag, a third of the
+    weights 0."""
+    table = rng.normal(size=(V, D)).astype(np.float32)
+    table[5], table[6] = np.inf, -np.inf
+    ids = rng.integers(0, V, (B, K))
+    ids[ids == 5], ids[ids == 6] = 7, 8
+    w = rng.normal(size=(B, K)).astype(np.float32)
+    w[rng.random((B, K)) < 1 / 3] = 0.0
+    ids[0::2, 0], ids[1::2, K - 1] = -1, V
+    ids[3::7, K // 2] = np.where(np.arange(len(ids[3::7])) % 2, 5, 6)
+    w[3::7, K // 2] = 0.0
+    return table, ids.astype(np.int32), w
+
+
+def _paths(D, K, item, table_at, ids_at):
+    """(VEC, 16-byte id loads) as ``launch`` in the source picks them: VEC 4
+    when D % 4 == 0 and the table sits on 4 values' alignment, 16-byte id
+    and weight loads when K % 4 == 0 and both arrays sit on 16 bytes."""
+    return (4 if D % 4 == 0 and table_at % (4 * item) == 0 else 1,
+            K % 4 == 0 and ids_at % 16 == 0)
+
+
+def _emulate_kernel(rows, ids, w, item=4, table_at=0, ids_at=0):
+    """The CUDA kernel's steps in numpy, every lane of every warp at once.
+
+    rows [V, D] f32 (a bf16 table widened: ``item`` 2), ids [B, K], w [B,
+    K]; ``table_at`` / ``ids_at``: byte offsets of the table and of ids and
+    weights past a 16-byte boundary, which pick the paths (``_paths``).
+    Returns (out, the times each output value was written)."""
+    V, D = rows.shape
+    B, K = ids.shape
+    vec, kvec = _paths(D, K, item, table_at, ids_at)
+    groups = -(-D // (UNIT_LANES * vec))
+    units = B * groups
+    tasks = -(-units // UNITS)
+    lane = np.arange(32)
+    q = lane % UNIT_LANES
+    lead = lane - q
+    unit = np.arange(tasks)[:, None] * UNITS + lane[None, :] // UNIT_LANES
+    live_unit = unit < units
+    bag = np.where(live_unit, unit // groups, 0)
+    col = np.where(live_unit, unit % groups, 0) * UNIT_LANES * vec + q * vec
+    live = live_unit & (col < D)
+
+    def load_slots(k0):  # each lane's 4 slots k0 + 4q .. 4q + 3
+        k = k0 + UNIT_LANES * q[None, :, None] + np.arange(4)
+        ok = live_unit[:, :, None] & (k < K)
+        if kvec:  # one 16-byte load or none: K % 4 == 0
+            assert (ok == ok[:, :, :1]).all()
+        kc = np.minimum(k, K - 1)
+        r = np.where(ok, ids[bag[:, :, None], kc], 0).astype(np.int64)
+        r = np.clip(np.where(r < 0, r + V, r), 0, V - 1)
+        return r, np.where(ok, w[bag[:, :, None], kc], np.float32(0))
+
+    cols = np.minimum(col[:, :, None] + np.arange(vec), D - 1)
+    acc = np.zeros((tasks, 32, vec), np.float32)
+    for k0 in range(0, K, CHUNK):  # 0 * inf is NaN, as in the kernel
+        crow, cw = load_slots(k0)
+        for kk in range(min(CHUNK, K - k0)):
+            src = lead | (kk >> 2)  # __shfl_sync from the unit's lane
+            r, wt = crow[:, src, kk & 3], cw[:, src, kk & 3]
+            v = np.where(live[:, :, None], rows[r[:, :, None], cols],
+                         np.float32(0))
+            with np.errstate(invalid="ignore"):
+                acc = acc + wt[:, :, None] * v
+            assert acc.dtype == np.float32
+    out = np.zeros((B, D), np.float32)
+    written = np.zeros((B, D), np.int64)
+    for e in range(vec):
+        at = live & (col + e < D)
+        out[bag[at], col[at] + e] = acc[:, :, e][at]
+        np.add.at(written, (bag[at], col[at] + e), 1)
+    return out, written
+
+
+@pytest.mark.parametrize("D", EDGE_D)
+@pytest.mark.parametrize("K", EDGE_K)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_emulated_kernel_tiling_matches_plain_version(D, K, dtype):
+    """The kernel's tiling, held bit for bit to the plain version: lanes a
+    row and column groups (VEC 4 for D % 4 == 0, else the scalar path),
+    ids and weights handed out by shuffles, per-lane accumulators summed in
+    k order; every output value written once."""
+    rng = np.random.default_rng(D * 100 + K)
+    table, ids, w = _edge_inputs(rng, EDGE_B, K, 50, D)
+    tt = torch.from_numpy(table).to(TORCH[dtype])
+    want = embedding_bag_ref(tt, torch.from_numpy(ids), torch.from_numpy(w))
+    assert torch.isnan(want).any() and torch.isfinite(want).any()
+    got, written = _emulate_kernel(tt.float().numpy(), ids, w,
+                                   item=tt.element_size())
+    assert (written == 1).all()
+    assert np.array_equal(got.view(np.int32), want.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("dtype,table_at,ids_at,paths", [
+    ("f32", 0, 0, (4, True)), ("f32", 4, 0, (1, True)),
+    ("f32", 8, 4, (1, False)), ("bf16", 0, 4, (4, False)),
+    ("bf16", 8, 0, (4, True)), ("bf16", 2, 0, (1, True)),
+])
+def test_emulated_kernel_alignment_paths(dtype, table_at, ids_at, paths):
+    """A table or ids off their vector alignment take the scalar paths, and
+    every path gives the plain version's bits (D = 16, K = 64: the recsys
+    path's shape)."""
+    rng = np.random.default_rng(table_at + ids_at)
+    table, ids, w = _edge_inputs(rng, EDGE_B, 64, 50, 16)
+    tt = torch.from_numpy(table).to(TORCH[dtype])
+    assert _paths(16, 64, tt.element_size(), table_at, ids_at) == paths
+    want = embedding_bag_ref(tt, torch.from_numpy(ids), torch.from_numpy(w))
+    got, written = _emulate_kernel(tt.float().numpy(), ids, w,
+                                   tt.element_size(), table_at, ids_at)
+    assert (written == 1).all()
+    assert np.array_equal(got.view(np.int32), want.numpy().view(np.int32))
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
@@ -179,3 +304,31 @@ def test_cuda_kernel_matches_plain_version():
             assert tk.embedding_bag.launches == before + (1 if B else 0)
             want = embedding_bag_ref(*args)
             assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    # the tiling's edges: every D and K of the emulation's cases, with inf
+    # rows under zero weights, on the card's NaNs (plain version on the card)
+    for D in EDGE_D:
+        for K in EDGE_K:
+            table, ids, w = _edge_inputs(rng, 1003, K, 4099, D)
+            for dtype in ("f32", "bf16"):
+                args = [torch.from_numpy(x).cuda() for x in (table, ids, w)]
+                args[0] = args[0].to(TORCH[dtype])
+                got = tk.embedding_bag(*args)
+                want = embedding_bag_ref(*args)
+                assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # tables and ids off their vector alignment: the scalar paths
+    table, ids, w = (torch.from_numpy(x).cuda()
+                     for x in _edge_inputs(rng, 1003, 64, 4099, 16))
+    for dtype, t_by, i_by in (("f32", 1, 0), ("f32", 0, 1), ("bf16", 1, 0),
+                              ("bf16", 4, 1)):
+        t = _shifted(table.to(TORCH[dtype]), t_by)
+        i, ww = _shifted(ids, i_by), _shifted(w, i_by)
+        got = tk.embedding_bag(t, i, ww)
+        want = embedding_bag_ref(t, i, ww)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _shifted(x, by):
+    """x's values, ``by`` elements past the start of a fresh allocation."""
+    flat = torch.empty(x.numel() + by, dtype=x.dtype, device=x.device)
+    flat[by:] = x.reshape(-1)
+    return flat[by:].view(x.shape)
