@@ -45,6 +45,23 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    read just after.  The top-k of 64 queries is held to ``exhaustive_topk``,
    the mirror's to the kernel residency's, the contributions to the host
    path, all exactly; two batches are traced as in phase 4;
+6b. loop    -- ``serve --ranked --loop`` over phase 6's engine and queries
+   (the corpus is not built again), its flags through ``serve.parse_args``
+   and then ``serve.serve_loop``: 15 s of Poisson arrivals at half phase
+   6's measured q/s (``--batch 64 --max-delay-ms 2``, no deadline), then
+   10 s at twice it with ``--max-queue 128`` and ``--deadline-ms`` 3 x
+   phase 6's batch p99, which must shed, then 5 s at twice it with a
+   deadline of half phase 6's batch p50, below a wave's service, which
+   must expire requests unserved; the launch counts set to 0 just
+   before and read just after (``pivot_select``, ``pivot_score`` and
+   ``bm25_score_rows`` must have launched).  Every served result must
+   equal phase 6's for the same query, docIDs and f64 scores bit for bit;
+   obs is armed with a ``MetricsServer`` on an ephemeral port, whose
+   ``/metrics`` must count as many ``serve_request_ms`` samples as
+   requests served and expired, and every run's arrivals must all be
+   served, expired or shed.  One ``loop path:`` JSON line a run (offered,
+   arrived and sustained q/s, request p50/p99/p99.9 from the scheduled
+   arrival, waves, shed, expired);
 7. kernels  -- each kernel against its plain PyTorch version on the card,
    at the main paths' shapes, over the arenas and corpus they built
    (integer contracts and the f32 BM25 contract: zero mismatches allowed),
@@ -104,6 +121,19 @@ RANKED_CHECK = 64  # ranked top-k held to exhaustive_topk
 MIRROR_BATCHES = 2  # ranked batches served through resident="mirror"
 CONTRIB_PAIRS = 4096  # (term, doc) pairs through contributions()
 PROBE_CURSORS = 1 << 20  # bm25_score_probe cursors held to the plain version
+# phase 6b, the serving loop over the ranked path's engine: a run at half
+# the ranked path's measured q/s, then one at twice it with a bounded queue
+# and a deadline of LOOP_DEADLINE_X times its batch p99, which must shed,
+# then a short one at twice it with a deadline of LOOP_EXPIRE_X times its
+# batch p50, which must expire requests
+LOOP_HALF_S = 15.0
+LOOP_OVER_S = 10.0
+LOOP_EXPIRE_S = 5.0
+LOOP_MAX_DELAY_MS = 2.0
+LOOP_OVER_QUEUE = 128
+LOOP_DEADLINE_X = 3.0
+LOOP_EXPIRE_X = 0.5
+LOOP_KERNELS = ("pivot_select", "pivot_score", "bm25_score_rows")
 LIBS = ["vbyte_decode", "ef_search", "bm25_score", "blockmax_pivot",
         "pivot_score", "gain_scan", "partition_scan", "embedding_bag"]
 # the libraries that evaluate an f32 contract (BM25's, the bag's k-ordered
@@ -816,6 +846,103 @@ def run_ranked_path(n_queries, torch, serve, counters, card):
           f"(docIDs and f64 scores) on {n_check} queries "
           f"({time.perf_counter()-t0:.1f}s)", flush=True)
     return res, mirror, (terms, docs), launches
+
+
+def scrape_count(port: int, metric: str) -> int:
+    """``<metric>_count`` of the Prometheus text served on ``port``."""
+    import urllib.request
+
+    url = f"http://127.0.0.1:{port}/metrics"
+    with urllib.request.urlopen(url, timeout=30) as r:
+        text = r.read().decode()
+    for line in text.splitlines():
+        if line.startswith(f"{metric}_count "):
+            return int(line.split()[1])
+    fail(f"/metrics has no {metric}_count line")
+
+
+def run_loop_path(rres, torch, serve, counters, card):
+    """Phase 6b: ``serve --ranked --loop`` over phase 6's engine and
+    queries, at half and at twice phase 6's q/s, with obs armed and its
+    registry served on an ephemeral port; returns the launch counts."""
+    from repro_torch import obs
+
+    engine, queries, want = rres["engine"], rres["queries"], rres["results"]
+    t_phase = time.perf_counter()
+    base = ["--ranked", "--loop", "--topk", str(TOPK), "--batch", str(BATCH),
+            "--seed", RANKED_ARGS[RANKED_ARGS.index("--seed") + 1],
+            "--device", DEVICE,
+            "--max-delay-ms", str(LOOP_MAX_DELAY_MS)]
+    runs = {
+        "half": ["--offered-qps", repr(0.5 * rres["qps"]),
+                 "--duration", str(LOOP_HALF_S)],
+        "overload": ["--offered-qps", repr(2.0 * rres["qps"]),
+                     "--duration", str(LOOP_OVER_S),
+                     "--max-queue", str(LOOP_OVER_QUEUE), "--deadline-ms",
+                     repr(LOOP_DEADLINE_X * rres["batch_p99_s"] * 1e3)],
+        "expiry": ["--offered-qps", repr(2.0 * rres["qps"]),
+                   "--duration", str(LOOP_EXPIRE_S),
+                   "--max-queue", str(LOOP_OVER_QUEUE), "--deadline-ms",
+                   repr(LOOP_EXPIRE_X * rres["batch_p50_s"] * 1e3)]}
+    for c in counters.values():
+        c.launches = 0
+    obs.reset()
+    obs.enable()
+    server = obs.MetricsServer(0)
+    try:
+        summaries = {}
+        for name, extra in runs.items():
+            argv = base + extra
+            print(f"[chip_smoke] loop path ({name}): serve {' '.join(argv)}",
+                  flush=True)
+            summaries[name] = serve.serve_loop(serve.parse_args(argv), engine,
+                                               queries)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        n_hist = scrape_count(server.port, "serve_request_ms")
+    finally:
+        server.close()
+        obs.enable(False)
+    print(f"[chip_smoke] loop-path launches: {launches}", flush=True)
+    for name in LOOP_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was never launched on the loop path")
+    for name, summ in summaries.items():
+        if not summ["served"]:
+            fail(f"loop path ({name}) served no request")
+        ends = summ["served"] + summ["expired"] + summ["shed"]
+        if ends != summ["arrivals"]:
+            fail(f"loop path ({name}): {summ['arrivals']} arrivals but "
+                 f"{ends} served, expired or shed")
+        bad = 0
+        for i, res in summ["results"]:
+            wd, ws = want[i]
+            if not (res.docs.dtype == wd.dtype and res.scores.dtype == ws.dtype
+                    and np.array_equal(res.docs, wd)
+                    and np.array_equal(res.scores.view(np.uint64),
+                                       ws.view(np.uint64))):
+                bad += 1
+        if bad:
+            fail(f"loop path ({name}): {bad} of {summ['served']} served "
+                 "results differ from the ranked path's")
+        line = {k: v for k, v in summ.items() if k != "results"}
+        line.update(run=name, mismatches=bad, card=card)
+        print(f"[chip_smoke] loop path: {json.dumps(line)}", flush=True)
+    if not summaries["overload"]["shed"]:
+        fail("loop path (overload): nothing was shed at twice the ranked "
+             "path's q/s")
+    if not summaries["expiry"]["expired"]:
+        fail("loop path (expiry): no request expired under a deadline of "
+             f"{LOOP_EXPIRE_X} x the ranked path's batch p50")
+    outcomes = sum(s["served"] + s["expired"] for s in summaries.values())
+    if n_hist != outcomes:
+        fail(f"/metrics serve_request_ms_count {n_hist} != served + expired "
+             f"{outcomes}")
+    print(f"[chip_smoke] loop path: every served result bit-identical to "
+          f"the ranked path's; /metrics serve_request_ms_count {n_hist} = "
+          f"served + expired; phase {time.perf_counter()-t_phase:.1f}s "
+          f"[{card}]", flush=True)
+    return launches
 
 
 def pivot_edge_cases(torch) -> int:
@@ -1673,6 +1800,9 @@ def main(argv=None) -> int:
     ranked_profile = profile_batches(torch, lambda b: reng.topk_batch(b, TOPK),
                                      rres["queries"], card, "ranked")
 
+    # 6b. the serving loop over the ranked path's engine, counted
+    loop_launches = run_loop_path(rres, torch, serve, all_counters, card)
+
     # 7. each kernel against its plain version
     kernels = check_kernels(torch, res, ef_engine, launches, card,
                             bool_profile)
@@ -1680,6 +1810,8 @@ def main(argv=None) -> int:
                                     ranked_profile)
     kernels += check_build_kernels(torch, build_gaps, blaunches, card)
     kernels.append(bag_row)
+    for row in kernels:
+        row["loop_launches"] = loop_launches.get(row["name"], 0)
     if len(kernels) != N_KERNELS:
         fail(f"the kernels line has {len(kernels)} rows, not {N_KERNELS}")
     print(f"[chip_smoke] all phases passed in "

@@ -25,8 +25,19 @@ FILE`` loads an ``EngineConfig`` JSON whose fields explicit flags override.
 ``--ranked`` serves exact BM25 top-k (``--topk``) instead, through
 ``repro_torch.ranked.topk_engine.TopKEngine`` over the freq-carrying arena
 (``--resident {auto,mirror,kernel}``); ``--compare-scalar`` then checks
-every result against the exhaustive oracle ``exhaustive_topk``.  Sharded,
-fault-injected and looped serving come with later slices.
+every result against the exhaustive oracle ``exhaustive_topk``.
+
+``--loop`` (requires ``--ranked``) serves through the CONTINUOUS-BATCHING
+async engine instead of fixed batches (``repro_torch.serving``): requests
+arrive on an asyncio loop at ``--offered-qps`` (Poisson) for
+``--duration`` seconds, a deadline-aware batch former coalesces them into
+pow2-bucketed waves (``--batch`` caps the wave, ``--max-delay-ms`` bounds
+the linger, ``--deadline-ms`` sets the per-request SLO, ``--max-queue``
+the backpressure bound), and the report adds sustained q/s, wave
+occupancy, deadline misses and end-to-end latency p50/p99/p99.9.
+``--metrics-port`` serves the armed obs registry over HTTP and
+``--metrics-dump`` writes its JSON snapshot at exit, on either path.
+Sharded and fault-injected serving come with a later slice.
 """
 
 from __future__ import annotations
@@ -70,6 +81,117 @@ def serve_batches(engine, queries: list[list[int]], batch: int):
             results.extend(engine.intersect_batch(chunk))
         latencies.append(t.elapsed_s)
     return results, latencies
+
+
+def serve_loop(args, engine, queries) -> dict:
+    """The --loop endpoint: open-loop Poisson arrivals through the
+    continuous-batching ``AsyncTopKServer``.
+
+    Arrivals are scheduled at absolute times (``t0`` plus cumulative
+    exponential gaps), so a driver that falls behind sends the late
+    arrivals at once instead of stretching the gaps, and each request's
+    latency and queue wait run from its scheduled arrival: the driver's
+    lag counts against the server, not in its favour.
+
+    Returns the run's summary: ``offered_qps`` (the flag), ``arrived_qps``
+    (arrivals over ``--duration``), ``sustained_qps``, ``wall_s``,
+    ``arrivals``, ``served``, ``expired``, ``shed``, ``late``, ``p50_ms``,
+    ``p99_ms``, ``p999_ms`` (request latency of the served),
+    ``queue_wait_p50_ms``, ``driver_lag_p99_ms`` (scheduled arrival to
+    submission), ``waves``, ``full_waves``, ``bucket_hits``,
+    ``padded_queries`` and ``results``: ``(query index, ServeResult)`` of
+    every served request, query index into ``queries``.
+    """
+    import asyncio
+
+    from ..serving import AsyncTopKServer, QueueFull
+
+    server = AsyncTopKServer(
+        engine,
+        k=args.topk,
+        max_batch=args.batch,
+        max_queue=args.max_queue,
+        max_delay_s=args.max_delay_ms / 1e3,
+        default_deadline_s=(
+            args.deadline_ms / 1e3 if args.deadline_ms else float("inf")
+        ),
+    )
+
+    async def drive():
+        rng = np.random.default_rng(args.seed + 1)
+        results: list = []  # (query index, ServeResult, driver lag s)
+        t0 = obs.now()
+
+        async def client(i, t_arrive):
+            lag = obs.now() - t_arrive
+            try:
+                results.append((i, await server.try_submit(queries[i]), lag))
+            except QueueFull:
+                pass  # counted in server.stats["shed"]
+
+        async with server:
+            tasks = []
+            end = t0 + args.duration
+            t_next = t0
+            while t_next < end:
+                wait = t_next - obs.now()
+                if wait > 0:
+                    await asyncio.sleep(wait)
+                tasks.append(asyncio.ensure_future(
+                    client(len(tasks) % len(queries), t_next)
+                ))
+                # Poisson arrivals at the offered rate
+                t_next += rng.exponential(1.0 / args.offered_qps)
+            await asyncio.gather(*tasks)
+        return results, len(tasks), obs.now() - t0
+
+    results, arrivals, wall = asyncio.run(drive())
+    ok = [(i, r, lag) for i, r, lag in results if not r.expired]
+    lat = [lag + r.latency_s for _, r, lag in ok]
+    waits = [lag + r.wait_s for _, r, lag in ok]
+    lags = [lag for _, _, lag in results]
+    st, fst = server.stats, server.former.stats
+    arrived_qps = arrivals / args.duration
+    print(f"[serve] loop: offered {args.offered_qps:,.0f} q/s for "
+          f"{args.duration:.1f}s (arrived {arrived_qps:,.2f} q/s) -> "
+          f"sustained {len(ok)/wall:,.0f} q/s "
+          f"({len(ok)} served, {st['expired']} expired, {st['shed']} shed, "
+          f"{st['late']} late)")
+    if lat:
+        print(f"[serve] loop latency: "
+              f"p50 {_percentile(lat, 50)*1e3:.2f} ms  "
+              f"p99 {_percentile(lat, 99)*1e3:.2f} ms  "
+              f"p99.9 {_percentile(lat, 99.9)*1e3:.2f} ms  "
+              f"(queue-wait p50 {_percentile(waits, 50)*1e3:.3f} ms, "
+              f"from scheduled arrival)")
+    waves = max(fst["waves"], 1)
+    print(f"[serve] loop waves: {fst['waves']} "
+          f"({fst['full_waves']} full, "
+          f"occupancy {st['served']/(waves*args.batch):.2f}, "
+          f"bucket reuse {fst['bucket_hits']}/{fst['waves']}, "
+          f"{st['padded_queries']} padded)")
+    print(f"[serve] engine stats: {dict(engine.stats)}")
+    return {
+        "offered_qps": args.offered_qps,
+        "arrived_qps": arrived_qps,
+        "sustained_qps": len(ok) / wall,
+        "wall_s": wall,
+        "arrivals": arrivals,
+        "served": st["served"],
+        "expired": st["expired"],
+        "shed": st["shed"],
+        "late": st["late"],
+        "p50_ms": _percentile(lat, 50) * 1e3,
+        "p99_ms": _percentile(lat, 99) * 1e3,
+        "p999_ms": _percentile(lat, 99.9) * 1e3,
+        "queue_wait_p50_ms": _percentile(waits, 50) * 1e3,
+        "driver_lag_p99_ms": _percentile(lags, 99) * 1e3,
+        "waves": fst["waves"],
+        "full_waves": fst["full_waves"],
+        "bucket_hits": fst["bucket_hits"],
+        "padded_queries": st["padded_queries"],
+        "results": [(i, r) for i, r, _ in ok],
+    }
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -118,12 +240,41 @@ def build_parser() -> argparse.ArgumentParser:
                     help="also time the per-query NextGEQ loop (the "
                          "exhaustive BM25 oracle with --ranked) and verify "
                          "the batched results against it")
+    ap.add_argument("--loop", action="store_true",
+                    help="serve through the continuous-batching async "
+                         "engine (repro_torch.serving, requires --ranked): "
+                         "Poisson arrivals at --offered-qps for "
+                         "--duration seconds, deadline-aware waves")
+    ap.add_argument("--offered-qps", type=float, default=2_000.0,
+                    help="open-loop arrival rate for --loop (Poisson)")
+    ap.add_argument("--duration", type=float, default=5.0,
+                    help="seconds of --loop arrivals before draining")
+    ap.add_argument("--max-delay-ms", type=float, default=2.0,
+                    help="batch-former linger: a partial wave fires after "
+                         "this long (latency floor vs occupancy trade)")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-request SLO for --loop; requests past it "
+                         "are expired unserved (0 = no deadline)")
+    ap.add_argument("--max-queue", type=int, default=1_024,
+                    help="bounded request queue for --loop: admissions "
+                         "beyond it shed (backpressure bound)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="arm the obs layer and serve the live metrics "
+                         "registry over HTTP: /metrics (Prometheus text) "
+                         "and /metrics.json (JSON snapshot); 0 binds an "
+                         "ephemeral port")
+    ap.add_argument("--metrics-dump", default=None, metavar="PATH",
+                    help="arm the obs layer and write the JSON metrics "
+                         "snapshot to PATH at exit")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.loop and not args.ranked:
+        ap.error("--loop serves ranked top-k; add --ranked")
     args.cfg = EngineConfig.from_args(args)
     return args
 
@@ -229,7 +380,10 @@ def run_ranked(args, rng, corpus, n_postings: int) -> dict:
     ``freqs_s`` (the tf generator), ``build_s`` (index + arena with its
     ranked sidecar), ``bpi``, ``arena_device_bytes`` (None off the device
     backend), ``qps``, ``batch_p50_s``, ``batch_p99_s``, ``oracle_s`` (per
-    query, None without ``--compare-scalar``).
+    query, None without ``--compare-scalar``).  With ``--loop`` the
+    warm-up batch is followed by ``serve_loop`` instead of the fixed
+    batches, and the keys from ``results`` on give way to ``loop``, its
+    summary.
     """
     from ..ranked.bm25 import exhaustive_topk
 
@@ -265,6 +419,18 @@ def run_ranked(args, rng, corpus, n_postings: int) -> dict:
     engine.topk_batch(queries[: args.batch], args.topk)  # warm mirror + cache
     print(f"[serve] warm-up batch: {obs.now()-t0:.1f}s (flat mirror"
           + (", impact mirror" if engine.resident == "mirror" else "") + ")")
+    built = {
+        "index": idx,
+        "engine": engine,
+        "queries": queries,
+        "n_postings": n_postings,
+        "freqs_s": t_freqs,
+        "build_s": t_build,
+        "bpi": idx.bits_per_int(),
+        "arena_device_bytes": dev_bytes,
+    }
+    if args.loop:
+        return {**built, "loop": serve_loop(args, engine, queries)}
 
     t0 = obs.now()
     results, lat = [], []
@@ -301,15 +467,8 @@ def run_ranked(args, rng, corpus, n_postings: int) -> dict:
               f"over {n_check} queries -> block-max speedup {speedup:.1f}x, "
               f"identical top-k")
     return {
-        "index": idx,
-        "engine": engine,
-        "queries": queries,
+        **built,
         "results": results,
-        "n_postings": n_postings,
-        "freqs_s": t_freqs,
-        "build_s": t_build,
-        "bpi": idx.bits_per_int(),
-        "arena_device_bytes": dev_bytes,
         "qps": len(queries) / wall,
         "batch_p50_s": _percentile(lat, 50),
         "batch_p99_s": _percentile(lat, 99),
@@ -318,7 +477,22 @@ def run_ranked(args, rng, corpus, n_postings: int) -> dict:
 
 
 def main(argv=None) -> int:
-    run(parse_args(argv))
+    args = parse_args(argv)
+    server = None
+    if args.metrics_port is not None or args.metrics_dump:
+        obs.enable()
+    if args.metrics_port is not None:
+        server = obs.MetricsServer(args.metrics_port)
+        print(f"[serve] metrics: http://127.0.0.1:{server.port}/metrics "
+              f"(Prometheus) and /metrics.json")
+    try:
+        run(args)
+    finally:
+        if args.metrics_dump:
+            obs.write_snapshot(args.metrics_dump)
+            print(f"[serve] metrics snapshot -> {args.metrics_dump}")
+        if server is not None:
+            server.close()
     return 0
 
 

@@ -1,8 +1,21 @@
-"""repro_torch.obs -- counters and span timing (off by default).
+"""repro_torch.obs -- metrics, span tracing, profiling and export.
 
-Arm with ``REPRO_OBS=1`` or ``obs.enable()``.  Counterpart of the subset of
-``repro.obs`` the boolean-AND and ranked paths call; the trace ring, the
-exporters and the HTTP server come with the serving slice.
+Off by default; arm with ``REPRO_OBS=1`` or ``obs.enable()``.  Counterpart
+of ``repro.obs``: the same API and metric names (``docs/metrics.md`` is
+the catalogue, which the port follows name for name).
+
+Quick tour::
+
+    from repro_torch import obs
+
+    obs.enable()
+    obs.count("engine_cache_hits", backend="torch")
+    with obs.span("decode_search", path="ranked"):
+        ...
+    with obs.timer("serve_batch_ms") as t:
+        ...
+    print(t.elapsed_s, obs.histogram("serve_batch_ms").percentile(99))
+    print(obs.render_prometheus())
 """
 
 from .metrics import (
@@ -13,12 +26,29 @@ from .metrics import (
     Histogram,
     Registry,
     count,
+    counter,
     enable,
     enabled,
-    reset,
+    gauge,
+    histogram,
+    observe,
     set_gauge,
 )
-from .trace import NULL_SPAN, Span, Timer, now, span, timer
+from .metrics import reset as _reset_metrics
+from .trace import (
+    NULL_SPAN,
+    Span,
+    Timer,
+    event,
+    events,
+    now,
+    profile,
+    span,
+    timer,
+)
+from .trace import clear as clear_trace
+from .export import diff, render_prometheus, snapshot, write_snapshot
+from .server import MetricsServer
 
 __all__ = [
     "REGISTRY",
@@ -26,16 +56,35 @@ __all__ = [
     "CounterDict",
     "Gauge",
     "Histogram",
+    "MetricsServer",
     "NULL_SPAN",
     "Registry",
     "Span",
     "Timer",
+    "clear_trace",
     "count",
+    "counter",
+    "diff",
     "enable",
     "enabled",
+    "event",
+    "events",
+    "gauge",
+    "histogram",
     "now",
+    "observe",
+    "profile",
+    "render_prometheus",
     "reset",
     "set_gauge",
+    "snapshot",
     "span",
     "timer",
+    "write_snapshot",
 ]
+
+
+def reset() -> None:
+    """Drop all metrics and the trace ring (tests / benches)."""
+    _reset_metrics()
+    clear_trace()

@@ -1,21 +1,23 @@
-"""Process-local metrics registry: counters and histograms.
+"""Process-local metrics registry: counters, gauges, log-linear histograms.
 
-Counterpart of the subset of ``repro/obs/metrics.py`` the boolean-AND
-and ranked paths use (the bucketed exporters come with the serving
-slice).  Zero-dependency (stdlib only).  The whole layer is off by
-default: the ``REPRO_OBS`` environment variable (or :func:`enable`) arms
-it, and every instrumentation helper (:func:`count`, ``CounterDict``)
-collapses to a cheap boolean check when disarmed.  Nothing in this
+Counterpart of ``repro/obs/metrics.py``.  Zero-dependency (stdlib only).
+The whole layer is off by default: the ``REPRO_OBS`` environment variable
+(or :func:`enable`) arms it, and every instrumentation helper
+(:func:`count`, :func:`observe`, ``CounterDict``) collapses to a cheap
+boolean check when disarmed.  Nothing in this
 module touches torch or numpy, so instrumenting a resident query path can
 never add a host sync.
 
 Naming scheme: ``<subsystem>_<what>[_<unit>]`` in snake_case, unit suffix
-``_ms`` / ``_bytes`` / ``_s`` for non-count metrics.  Labels are for *bounded* dimensions only (backend, shard id,
-phase name) -- never query ids or document ids.
+``_ms`` / ``_bytes`` / ``_s`` for non-count metrics.  Labels are for
+*bounded* dimensions only (backend, shard id, phase name) -- never query
+ids or document ids.  The names follow the reference's catalogue
+(``docs/metrics.md``) name for name.
 """
 
 from __future__ import annotations
 
+import bisect
 import math
 import os
 import threading
@@ -28,8 +30,12 @@ __all__ = [
     "Registry",
     "REGISTRY",
     "count",
+    "counter",
     "enable",
     "enabled",
+    "gauge",
+    "histogram",
+    "observe",
     "reset",
     "set_gauge",
 ]
@@ -75,7 +81,7 @@ class Counter:
 
 
 class Gauge:
-    """Last-write-wins scalar (the ranked engine's theta trajectory)."""
+    """Last-write-wins scalar (theta trajectory, queue depth, ...)."""
 
     __slots__ = ("name", "labels", "_value", "_lock")
 
@@ -89,27 +95,77 @@ class Gauge:
         with self._lock:
             self._value = v
 
+    def add(self, n=1) -> None:
+        with self._lock:
+            self._value += n
+
     @property
     def value(self):
         return self._value
 
 
-class Histogram:
-    """Sample count and sum of one timed quantity."""
+# log-linear bucketing: SUBS linear sub-buckets per power-of-ten decade,
+# covering 1e-3 .. 1e9 (sub-microsecond spans in ms up to multi-GB byte
+# totals).  Boundaries are upper-inclusive (`le`, Prometheus convention).
+_SUBS = 8
+_DECADE_LO = -3
+_DECADE_HI = 9
+_BOUNDS: list = []
+for _d in range(_DECADE_LO, _DECADE_HI):
+    _step = 9.0 * (10.0**_d) / _SUBS
+    for _j in range(1, _SUBS + 1):
+        _BOUNDS.append(10.0**_d + _j * _step)
+_N_BUCKETS = len(_BOUNDS) + 1  # +1 overflow
 
-    __slots__ = ("name", "labels", "_count", "_sum", "_lock")
+# exact-percentile ring: raw samples kept up to this cap, after which the
+# readout falls back to bucket interpolation (bounded memory, long runs)
+RAW_CAP = 4096
+
+
+class Histogram:
+    """Fixed-bucket log-linear histogram with exact small-N percentiles.
+
+    ``observe()`` is O(log buckets); the raw-sample ring gives *exact*
+    p50/p90/p99/p99.9 until RAW_CAP samples, then interpolated from the
+    log-linear buckets (<= 12.5% relative error per sub-bucket).
+    """
+
+    __slots__ = (
+        "name",
+        "labels",
+        "_counts",
+        "_raw",
+        "_count",
+        "_sum",
+        "_min",
+        "_max",
+        "_lock",
+    )
 
     def __init__(self, name: str, labels: tuple = ()):
         self.name = name
         self.labels = labels
+        self._counts = [0] * _N_BUCKETS
+        self._raw: list = []
         self._count = 0
         self._sum = 0.0
+        self._min = math.inf
+        self._max = -math.inf
         self._lock = threading.Lock()
 
     def observe(self, v) -> None:
+        v = float(v)
+        i = bisect.bisect_left(_BOUNDS, v)
         with self._lock:
+            self._counts[i] += 1
             self._count += 1
-            self._sum += float(v)
+            self._sum += v
+            if v < self._min:
+                self._min = v
+            if v > self._max:
+                self._max = v
+            if len(self._raw) < RAW_CAP:
+                self._raw.append(v)
 
     @property
     def count(self) -> int:
@@ -118,6 +174,14 @@ class Histogram:
     @property
     def sum(self) -> float:
         return self._sum
+
+    @property
+    def min(self) -> float:
+        return self._min if self._count else 0.0
+
+    @property
+    def max(self) -> float:
+        return self._max if self._count else 0.0
 
     @staticmethod
     def percentile_of(xs, q: float) -> float:
@@ -135,6 +199,56 @@ class Histogram:
         hi = min(lo + 1, len(xs) - 1)
         frac = pos - lo
         return float(xs[lo] * (1.0 - frac) + xs[hi] * frac)
+
+    def percentile(self, q: float) -> float:
+        """Percentile readout: exact while the raw ring holds every sample,
+        log-linear bucket interpolation afterwards."""
+        with self._lock:
+            if self._count == 0:
+                return 0.0
+            if self._count <= len(self._raw):
+                return self.percentile_of(self._raw, q)
+            counts = list(self._counts)
+            total = self._count
+        # bucket interpolation on a snapshot of the counts
+        rank = (q / 100.0) * (total - 1)
+        seen = 0
+        for i, c in enumerate(counts):
+            if c == 0:
+                continue
+            if seen + c > rank:
+                lo = _BOUNDS[i - 1] if i > 0 else max(0.0, self._min)
+                hi = _BOUNDS[i] if i < len(_BOUNDS) else self._max
+                frac = (rank - seen) / c
+                return float(lo + (hi - lo) * frac)
+            seen += c
+        return float(self._max)
+
+    def summary(self) -> dict:
+        """Snapshot dict used by the JSON exporter."""
+        return {
+            "count": self.count,
+            "sum": self.sum,
+            "min": self.min,
+            "max": self.max,
+            "p50": self.percentile(50),
+            "p90": self.percentile(90),
+            "p99": self.percentile(99),
+            "p999": self.percentile(99.9),
+        }
+
+    def buckets(self) -> list:
+        """(upper_bound, cumulative_count) pairs for Prometheus export."""
+        out = []
+        cum = 0
+        with self._lock:
+            counts = list(self._counts)
+        for b, c in zip(_BOUNDS, counts):
+            cum += c
+            if c:
+                out.append((b, cum))
+        out.append((math.inf, cum + counts[-1]))
+        return out
 
 
 class Registry:
@@ -175,10 +289,28 @@ class Registry:
 REGISTRY = Registry()
 
 
+def counter(name: str, **labels) -> Counter:
+    return REGISTRY.counter(name, **labels)
+
+
+def gauge(name: str, **labels) -> Gauge:
+    return REGISTRY.gauge(name, **labels)
+
+
+def histogram(name: str, **labels) -> Histogram:
+    return REGISTRY.histogram(name, **labels)
+
+
 def count(name: str, n=1, **labels) -> None:
     """Increment a counter iff the layer is armed; no-op constant otherwise."""
     if _ENABLED:
         REGISTRY.counter(name, **labels).inc(n)
+
+
+def observe(name: str, v, **labels) -> None:
+    """Record a histogram sample iff the layer is armed."""
+    if _ENABLED:
+        REGISTRY.histogram(name, **labels).observe(v)
 
 
 def set_gauge(name: str, v, **labels) -> None:

@@ -1,7 +1,8 @@
-"""Span timing: nested context managers over the ``span_ms`` histogram.
+"""Span tracing: nested context managers over a ring-buffered trace log.
 
 ``span("decode_search")`` is the workhorse: when the layer is armed it
-observes the span's wall duration into the ``span_ms`` histogram
+records a {name, start, wall duration, nesting depth, thread} event into
+a bounded ring and observes the duration into the ``span_ms`` histogram
 (labelled by span name).  When disarmed, ``span()`` returns a shared
 no-op singleton -- no allocation, no clock read, no lock.
 
@@ -11,17 +12,37 @@ layer is armed, so instrumentation can never add a host sync to an
 uninstrumented run.
 
 ``now()`` is the raw clock for code that needs a timestamp across scopes.
-Counterpart of ``repro/obs/trace.py`` without its trace ring and profiler
-hook, which come with the serving slice.
+``profile(logdir)`` wraps ``torch.profiler`` around a region when the
+layer is armed.  Counterpart of ``repro/obs/trace.py``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import threading
 import time
+from collections import deque
 
 from . import metrics as _m
 
-__all__ = ["NULL_SPAN", "Span", "Timer", "now", "span", "timer"]
+__all__ = [
+    "NULL_SPAN",
+    "Span",
+    "Timer",
+    "clear",
+    "event",
+    "events",
+    "now",
+    "profile",
+    "span",
+    "timer",
+]
+
+TRACE_CAPACITY = 4096
+_RING: deque = deque(maxlen=TRACE_CAPACITY)
+_EPOCH = time.perf_counter()
+_TLS = threading.local()
 
 
 def now() -> float:
@@ -29,10 +50,27 @@ def now() -> float:
     return time.perf_counter()
 
 
+def events() -> list:
+    """Snapshot of the trace ring, oldest first."""
+    return list(_RING)
+
+
+def clear() -> None:
+    _RING.clear()
+
+
+def event(name: str, **fields) -> None:
+    """Record a discrete event (health transition, failover, ...) iff armed."""
+    if _m.enabled():
+        rec = {"kind": "event", "name": name, "t_s": now() - _EPOCH}
+        rec.update(fields)
+        _RING.append(rec)
+
+
 class Span:
     """Armed span: wall time always, device time via opt-in fence()."""
 
-    __slots__ = ("name", "labels", "_t0", "_fence")
+    __slots__ = ("name", "labels", "_t0", "_depth", "_fence")
 
     def __init__(self, name: str, labels: dict):
         self.name = name
@@ -45,18 +83,39 @@ class Span:
         self._fence = x
 
     def __enter__(self):
+        depth = getattr(_TLS, "depth", 0)
+        _TLS.depth = depth + 1
+        self._depth = depth
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        dev_ms = None
         if self._fence is not None:
+            t_fence = time.perf_counter()
             dev = getattr(self._fence, "device", None)
             if dev is not None and dev.type == "cuda":
                 import torch
 
                 torch.cuda.synchronize(dev)
+            dev_ms = (time.perf_counter() - t_fence) * 1e3
             self._fence = None
-        dur_ms = (time.perf_counter() - self._t0) * 1e3
+        t1 = time.perf_counter()
+        _TLS.depth = self._depth
+        dur_ms = (t1 - self._t0) * 1e3
+        rec = {
+            "kind": "span",
+            "name": self.name,
+            "start_s": self._t0 - _EPOCH,
+            "dur_ms": dur_ms,
+            "depth": self._depth,
+            "thread": threading.current_thread().name,
+        }
+        if dev_ms is not None:
+            rec["fence_ms"] = dev_ms
+        if self.labels:
+            rec.update(self.labels)
+        _RING.append(rec)
         _m.REGISTRY.histogram("span_ms", span=self.name, **self.labels).observe(
             dur_ms
         )
@@ -82,7 +141,7 @@ NULL_SPAN = _NullSpan()
 
 
 def span(name: str, **labels):
-    """Open a span; returns the shared no-op singleton when disarmed."""
+    """Open a trace span; returns the shared no-op singleton when disarmed."""
     if _m.enabled():
         return Span(name, labels)
     return NULL_SPAN
@@ -116,3 +175,26 @@ class Timer:
 def timer(name: str, **labels) -> Timer:
     """Wall-clock timer; histogram names take a ``_ms`` suffix by convention."""
     return Timer(name, labels)
+
+
+@contextlib.contextmanager
+def profile(logdir: str):
+    """Trace the region with ``torch.profiler`` when the layer is armed and
+    write it as a Chrome trace to ``<logdir>/trace.json``.
+
+    CPU activity always, CUDA activity too when the process sees a card.
+    Disarmed, a no-op that touches neither torch nor the filesystem.  An
+    error of the profiler while armed propagates."""
+    if not _m.enabled():
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from repro_torch.launch import serve
@@ -88,3 +89,82 @@ def test_serve_ranked_default_device_needs_cuda():
     assert proc.returncode != 0
     assert "CUDA" in proc.stderr
     assert "ranked top-" not in proc.stdout
+
+
+LOOP = RANKED + ["--loop", "--device", "cpu", "--batch", "8",
+                 "--offered-qps", "300", "--duration", "0.5"]
+
+
+def test_serve_ranked_loop_cpu_matches_direct_batches(capsys):
+    """--ranked --loop serves Poisson arrivals through the continuous-
+    batching server: its three report lines, and every served result equal
+    to a direct topk_batch of the same query."""
+    got = serve.run(serve.parse_args(LOOP))
+    out = capsys.readouterr().out
+    for line in ("[serve] loop: offered 300 q/s", "[serve] loop latency: p50",
+                 "[serve] loop waves:"):
+        assert line in out
+    loop = got["loop"]
+    assert "results" not in got and loop["served"] == len(loop["results"]) > 0
+    assert loop["expired"] == loop["shed"] == loop["late"] == 0
+    # arrivals run on an absolute Poisson schedule from default_rng(seed
+    # + 1): their count is the schedule's, however late the driver ran
+    rng, t, n = np.random.default_rng(2 + 1), 0.0, 0
+    while t < 0.5:
+        n += 1
+        t += rng.exponential(1.0 / 300)
+    assert loop["arrivals"] == n == loop["served"]
+    assert loop["arrived_qps"] == n / 0.5
+    assert loop["driver_lag_p99_ms"] >= 0
+    assert loop["sustained_qps"] > 0 and loop["waves"] >= 1
+    assert loop["p999_ms"] >= loop["p99_ms"] >= loop["p50_ms"] > 0
+    queries = got["queries"]
+    idx = sorted({i for i, _ in loop["results"]})
+    want = dict(zip(idx, got["engine"].topk_batch([queries[i] for i in idx],
+                                                  10)))
+    for i, res in loop["results"]:
+        assert not res.expired
+        assert np.array_equal(res.docs, want[i][0])
+        assert np.array_equal(res.scores, want[i][1])
+
+
+def test_serve_loop_needs_ranked(capsys):
+    with pytest.raises(SystemExit) as e:
+        serve.parse_args(TINY + ["--loop", "--device", "cpu"])
+    assert e.value.code == 2
+    assert "--loop serves ranked top-k; add --ranked" in capsys.readouterr().err
+
+
+@pytest.fixture
+def obs_restored():
+    from repro_torch import obs
+
+    was = obs.enabled()
+    obs.reset()
+    yield obs
+    obs.reset()
+    obs.enable(was)
+
+
+def test_serve_loop_metrics_dump(tmp_path, obs_restored, capsys):
+    path = tmp_path / "snap.json"
+    assert serve.main(LOOP + ["--metrics-dump", str(path)]) == 0
+    snap = json.loads(path.read_text())
+    h = snap["histograms"]["serve_request_ms"]
+    served = snap["counters"]['serve_requests{kind="done"}']
+    assert h["count"] == served > 0 and h["p99"] >= h["p50"] > 0
+    assert snap["histograms"]['serve_wave_ms{engine="topk"}']["count"] >= 1
+    assert "serve_queue_depth" in snap["gauges"]
+    assert any(e["name"] == "seed" for e in snap["events"])
+    assert f"metrics snapshot -> {path}" in capsys.readouterr().out
+
+
+def test_serve_boolean_metrics_port_and_dump(tmp_path, obs_restored, capsys):
+    """--metrics-port and --metrics-dump arm obs on the boolean path too."""
+    path = tmp_path / "snap.json"
+    assert serve.main(TINY + ["--device", "cpu", "--metrics-port", "0",
+                              "--metrics-dump", str(path)]) == 0
+    out = capsys.readouterr().out
+    assert "[serve] metrics: http://127.0.0.1:" in out
+    snap = json.loads(path.read_text())
+    assert snap["histograms"]['serve_batch_ms{path="boolean_and"}']["count"] == 3
