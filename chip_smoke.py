@@ -62,6 +62,33 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    served, expired or shed.  One ``loop path:`` JSON line a run (offered,
    arrived and sustained q/s, request p50/p99/p99.9 from the scheduled
    arrival, waves, shed, expired);
+6c. shards  -- sharded serving over phase 4's and phase 6's indexes and
+   their first 256 queries (no corpus is built again), with the launch
+   counts set to 0 just before each run and read just after
+   (``decode_search`` on the boolean runs, ``bm25_score_probe`` and
+   ``pivot_select`` on the ranked ones must have launched): (a) ``serve
+   --shards 4 --replicas 2 --faults 1`` (flags through
+   ``serve.parse_args``, the ``auto`` arena, so the host loop), which
+   must report availability 1.0000 and a failover, every answer equal
+   to phase 4's; (b) ``--shards 4 --faults 1 --recover``: one recovery
+   with a finite p99, every shard HEALTHY, answers equal to phase 4's,
+   the checkpoint's bytes and save and restore seconds printed; then
+   the same shards without replicas or checkpoint, whose answers after
+   the fault to queries that touch a lost list must equal phase 4's
+   engine on the live-restricted queries, and every other phase 4's;
+   (c) ``--ranked --topk 10 --shards 4 --replicas 2 --faults 1`` over
+   phase 6's index, top-k bit-identical to phase 6's; (d)
+   ``EngineConfig(shards=4, replicas=2, shard_mesh=[cuda:0] * 4,
+   codec_policy="svb")``, boolean and ranked (kernel residency), one
+   injected fault, through the device-list dispatch (banner "shard_map
+   over 4 devices"), answers equal to the host loop's; (e) ``shards=1``
+   with ``shard_mesh="auto"``, the dispatch on one card, bit-identical
+   to the unsharded engine.  Every ranked run's ``contributions()`` on
+   4,096 pairs equals the host path.  One ``shard path:`` JSON line a
+   run (mode, shards, replicas, q/s, every batch's ms and their p50/p99,
+   availability, failures, failovers, recoveries, recovery p99, each
+   shard's device bytes); the phase prints its seconds against its
+   budget of 180 s;
 7. kernels  -- each kernel against its plain PyTorch version on the card,
    at the main paths' shapes, over the arenas and corpus they built
    (integer contracts and the f32 BM25 contract: zero mismatches allowed),
@@ -134,6 +161,13 @@ LOOP_OVER_QUEUE = 128
 LOOP_DEADLINE_X = 3.0
 LOOP_EXPIRE_X = 0.5
 LOOP_KERNELS = ("pivot_select", "pivot_score", "bm25_score_rows")
+# phase 6c, sharded serving: SHARDS shards, SHARD_QUERIES queries a run (of
+# phase 4's and phase 6's: four batches, one of them the fault's; the depth
+# a run serves, cut before the phase budget is), and the phase's budget in
+# seconds
+SHARDS = 4
+SHARD_QUERIES = 256
+SHARD_PHASE_S = 180.0
 LIBS = ["vbyte_decode", "ef_search", "bm25_score", "blockmax_pivot",
         "pivot_score", "gain_scan", "partition_scan", "embedding_bag"]
 # the libraries that evaluate an f32 contract (BM25's, the bag's k-ordered
@@ -943,6 +977,323 @@ def run_loop_path(rres, torch, serve, counters, card):
           f"served + expired; phase {time.perf_counter()-t_phase:.1f}s "
           f"[{card}]", flush=True)
     return launches
+
+
+def same_topk(got, want) -> bool:
+    """Top-k lists equal: docIDs, and f64 scores bit for bit."""
+    return len(got) == len(want) and all(
+        np.array_equal(gd, wd) and gs.dtype == ws.dtype
+        and np.array_equal(gs.view(np.uint64), ws.view(np.uint64))
+        for (gd, gs), (wd, ws) in zip(got, want))
+
+
+def shard_line(name, engine, summ, launches, card, base_qps,
+               **extra) -> dict:
+    """The ``shard path:`` JSON record of one phase 6c run; ``base_qps``
+    is the unsharded engine's q/s on the same queries in the same run."""
+    sa = engine.sharded
+    f = summ.get("faults") or {}
+    line = {
+        "run": name,
+        "mode": "shard_map" if sa.mesh is not None else "host_loop",
+        "shards": sa.n_shards, "replicas": sa.replicas,
+        "qps": summ["qps"], "unsharded_qps": base_qps,
+        "vs_unsharded": summ["qps"] / base_qps,
+        "batch_p50_ms": summ["batch_p50_s"] * 1e3,
+        "batch_p99_ms": summ["batch_p99_s"] * 1e3,
+        "batch_ms": [t * 1e3 for t in summ["batch_s"]],
+        "availability": f.get("availability", 1.0),
+        "failures": f.get("failures", 0), "failovers": f.get("failovers", 0),
+        "recoveries": f.get("recoveries", 0),
+        "recovery_p99_ms": (f["recovery_p99_s"] * 1e3
+                            if f.get("recoveries") else None),
+        "shard_device_bytes": sa.shard_device_nbytes(),
+        "launches": {k: v for k, v in launches.items() if v}, "card": card,
+        **extra,
+    }
+    print(f"[chip_smoke] shard path: {json.dumps(line)}", flush=True)
+    return line
+
+
+def run_shard_path(res, rres, torch, serve, counters, card):
+    """Phase 6c: sharded serving with replicas, fault injection, arena
+    checkpoints and shard recovery over phase 4's and phase 6's indexes
+    and queries; returns the launch counts summed over its runs."""
+    import contextlib
+    import io
+
+    from repro_torch.api import EngineConfig, make_query_engine, make_topk_engine
+    from repro_torch.core.query_engine import QueryEngine
+    from repro_torch.distributed.resilient import (
+        HEALTHY,
+        ResilientEngine,
+        ShardFaultInjector,
+    )
+
+    t_phase = time.perf_counter()
+    idx, queries = res["index"], res["queries"][:SHARD_QUERIES]
+    want = res["results"][:SHARD_QUERIES]
+    ridx, rqueries = rres["index"], rres["queries"][:SHARD_QUERIES]
+    rwant = rres["results"][:SHARD_QUERIES]
+    rng = np.random.default_rng(3)
+    cterms, cdocs = contrib_pairs(rng, rres["engine"], CONTRIB_PAIRS)
+    cwant = rres["engine"]._contrib_np(cterms, cdocs).view(np.int32)
+    base = ["--batch", str(BATCH), "--seed", "0", "--device", DEVICE,
+            "--queries", str(SHARD_QUERIES)]
+    totals: dict = {}
+
+    # the unsharded engines of phases 4 and 6 (warm) on the same queries:
+    # the q/s every run is compared with
+    def qps_of(serve_batch, qs):
+        t0 = time.perf_counter()
+        for i in range(0, len(qs), BATCH):
+            serve_batch(qs[i : i + BATCH])
+        return len(qs) / (time.perf_counter() - t0)
+
+    bool_qps = qps_of(res["engine"].intersect_batch, queries)
+    ranked_qps = qps_of(lambda b: rres["engine"].topk_batch(b, TOPK),
+                        rqueries)
+    print(f"[chip_smoke] shard path: the unsharded engines on the same "
+          f"{len(queries)} queries: boolean {bool_qps:.2f} q/s, ranked "
+          f"{ranked_qps:.2f} q/s [{card}]", flush=True)
+
+    def counted(fn, need):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        for k in need:
+            if launches[k] <= 0:
+                fail(f"kernel {k} was never launched on the shard path")
+        for k, n in launches.items():
+            totals[k] = totals.get(k, 0) + n
+        return out, launches
+
+    def check_contrib(engine, name):
+        got = engine.contributions(cterms, cdocs).view(np.int32)
+        if not np.array_equal(got, cwant):
+            fail(f"shard path ({name}): contributions() differ from the "
+                 f"host path on {int((got != cwant).sum())} pairs")
+
+    # (a) boolean replica failover, the auto (multi-codec) arena: host loop
+    args = serve.parse_args(["--n-lists", str(len(idx.list_sizes)), *base,
+                             "--codec", "auto", "--shards", str(SHARDS),
+                             "--replicas", "2", "--faults", "1"])
+    summ, launches = counted(lambda: serve.serve_boolean(args, idx, queries),
+                             ["decode_search"])
+    f = summ["faults"]
+    if f["availability"] != 1.0 or f["failovers"] < 1:
+        fail(f"shard path (a): availability {f['availability']}, "
+             f"failovers {f['failovers']}")
+    if not all(np.array_equal(g, w) for g, w in zip(summ["results"], want)):
+        fail("shard path (a): a failed-over answer differs from phase 4's")
+    shard_line("a-boolean-failover", summ["engine"], summ, launches, card,
+               bool_qps)
+    summ = None  # frees the run's engine and its shards before the next
+    torch.cuda.empty_cache()
+
+    # (b) boolean checkpoint recovery, then degradation without replicas
+    args = serve.parse_args(["--n-lists", str(len(idx.list_sizes)), *base,
+                             "--codec", "auto", "--shards", str(SHARDS),
+                             "--faults", "1", "--recover"])
+    summ, launches = counted(lambda: serve.serve_boolean(args, idx, queries),
+                             ["decode_search"])
+    f = summ["faults"]
+    p99 = f["recovery_p99_s"]
+    if (f["recoveries"] != 1 or not np.isfinite(p99)
+            or f["health"] != [HEALTHY] * SHARDS):
+        fail(f"shard path (b): recoveries {f['recoveries']}, p99 {p99}, "
+             f"health {f['health']}")
+    if not all(np.array_equal(g, w) for g, w in zip(summ["results"], want)):
+        fail("shard path (b): an answer served around the recovery differs "
+             "from phase 4's")
+    print(f"[chip_smoke] shard path (b): arena checkpoint "
+          f"{f['checkpoint_bytes']:,} B on disk (arena "
+          f"{summ['engine'].arena.nbytes():,} B in memory), save "
+          f"{f['checkpoint_s']:.3f}s, shard restore {f['restore_s']}s, "
+          f"recovery p99 {p99 * 1e3:.1f} ms [{card}]", flush=True)
+    shard_line("b-boolean-recover", summ["engine"], summ, launches, card,
+               bool_qps, checkpoint_bytes=f["checkpoint_bytes"],
+               checkpoint_s=f["checkpoint_s"], restore_s=f["restore_s"])
+    summ = None  # frees the run's engine and its shards before the next
+    torch.cuda.empty_cache()
+    deg = ResilientEngine(
+        make_query_engine(idx, args.cfg.replace(fault_injector=None)),
+        injector=ShardFaultInjector(at_batches=(1,), shards=(0,)))
+    (got, _, n_deg), launches = counted(
+        lambda: serve.serve_resilient(deg, queries, BATCH), ["decode_search"])
+    missing = set(deg.sa.unserved_lists().tolist())
+    # shard 0 is dead from batch 1 on: a query served there that touches a
+    # lost list gets the answer of its live terms, every other query
+    # phase 4's
+    lost = [i >= BATCH and any(t in missing for t in q)
+            for i, q in enumerate(queries)]
+    live = [[t for t in q if t not in missing] for q in queries]
+    restricted = res["engine"].intersect_batch(live)
+    bad = sum(not np.array_equal(g, r if x else w)
+              for g, w, r, x in zip(got, want, restricted, lost))
+    if not missing or n_deg != sum(lost) or bad:
+        fail(f"shard path (b): {len(missing)} lists lost, {n_deg} degraded "
+             f"queries of {sum(lost)} after the fault that touch them, {bad} "
+             "answers not the live-restricted ones where degraded and "
+             "phase 4's elsewhere")
+    print(f"[chip_smoke] shard path (b): without replicas or checkpoint "
+          f"{len(missing)} lists lost, {n_deg} of {len(queries)} queries "
+          "degraded, each equal to phase 4's answer of the query restricted "
+          "to live lists", flush=True)
+    del deg
+    torch.cuda.empty_cache()
+
+    # (c) ranked replica failover over phase 6's index: host loop
+    args = serve.parse_args(["--n-lists", str(len(ridx.list_sizes)), *base,
+                             "--ranked", "--topk", str(TOPK), "--resident",
+                             "kernel", "--codec", "auto", "--shards",
+                             str(SHARDS), "--replicas", "2", "--faults", "1"])
+
+    def ranked_c():
+        out = serve.serve_ranked(args, ridx, rqueries)
+        check_contrib(out["engine"], "c")
+        return out
+
+    summ, launches = counted(ranked_c, ["bm25_score_probe", "pivot_select"])
+    f = summ["faults"]
+    if f["availability"] != 1.0 or f["failovers"] < 1:
+        fail(f"shard path (c): availability {f['availability']}, "
+             f"failovers {f['failovers']}")
+    if summ["engine"].resident != "kernel" or not same_topk(summ["results"],
+                                                              rwant):
+        fail("shard path (c): a failed-over top-k differs from phase 6's")
+    shard_line("c-ranked-failover", summ["engine"], summ, launches, card,
+               ranked_qps)
+    summ = None  # frees the run's engine and its shards before the next
+    torch.cuda.empty_cache()
+
+    # (d) the device-list dispatch: four shards on one card, one fault
+    mesh = [torch.device(DEVICE, 0)] * SHARDS
+    cfg = EngineConfig(device=DEVICE, shards=SHARDS, replicas=2,
+                       shard_mesh=mesh, codec_policy="svb")
+
+    def dispatch_run(name, make, need, serve_fn, check, base_qps):
+        def go():
+            t0 = time.perf_counter()
+            engine = make()
+            banner = io.StringIO()
+            with contextlib.redirect_stdout(banner):
+                serve._print_shard_layout(engine)
+            print(banner.getvalue(), end="", flush=True)
+            if f"shard_map over {SHARDS} devices" not in banner.getvalue():
+                fail(f"shard path ({name}): banner {banner.getvalue()!r}")
+            serve_fn(engine, queries[:BATCH])  # warm-up: uploads, mirrors
+            rs = ResilientEngine(engine, injector=ShardFaultInjector(
+                at_batches=(1,), shards=(0,)), backoff_s=1e-3)
+            t1 = time.perf_counter()
+            out, lat, n_deg = serve_fn(rs, None)
+            wall = time.perf_counter() - t1
+            check(engine, out)
+            return engine, rs, {
+                "qps": SHARD_QUERIES / wall,
+                "batch_p50_s": float(np.percentile(lat, 50)),
+                "batch_p99_s": float(np.percentile(lat, 99)),
+                "batch_s": lat,
+                "faults": serve._print_fault_summary(rs, SHARD_QUERIES,
+                                                     n_deg),
+                "set_up_s": t1 - t0,
+            }
+
+        (engine, rs, summ), launches = counted(go, need)
+        f = summ["faults"]
+        if f["availability"] != 1.0 or f["failovers"] < 1:
+            fail(f"shard path ({name}): availability {f['availability']}, "
+                 f"failovers {f['failovers']}")
+        if engine.sharded.mesh is None or engine._smap_fn is None:
+            fail(f"shard path ({name}): the device-list dispatch did not run")
+        shard_line(name, engine, summ, launches, card, base_qps,
+                   set_up_s=summ["set_up_s"])
+        del engine, rs
+        torch.cuda.empty_cache()
+
+    def serve_bool(e, warm):
+        if warm is not None:
+            return e.intersect_batch(warm)
+        return serve.serve_resilient(e, queries, BATCH)
+
+    def check_bool(engine, out):
+        if not all(np.array_equal(g, w) for g, w in zip(out, want)):
+            fail("shard path (d): a device-list answer differs from the "
+                 "host loop's")
+
+    dispatch_run("d-boolean-shard-map", lambda: make_query_engine(idx, cfg),
+                 ["decode_search"], serve_bool, check_bool, bool_qps)
+
+    def serve_topk(e, warm):
+        if warm is not None:
+            return e.topk_batch(rqueries[:BATCH], TOPK)
+        return serve.serve_resilient(e, rqueries, BATCH, topk=TOPK)
+
+    def check_topk(engine, out):
+        if not same_topk(out, rwant):
+            fail("shard path (d): a device-list top-k differs from phase 6's")
+        check_contrib(engine, "d")
+        if engine._smap_pivot is None:
+            fail("shard path (d): the pivot did not take the dispatch")
+
+    dispatch_run("d-ranked-shard-map",
+                 lambda: make_topk_engine(ridx, cfg.replace(resident="kernel")),
+                 ["bm25_score_probe", "pivot_select"], serve_topk, check_topk,
+                 ranked_qps)
+
+    # (e) one shard, shard_mesh "auto": the dispatch path on one card,
+    # bit-identical to the unsharded engine over the same svb arena, whose
+    # answers and q/s are taken before the counted window (which counts the
+    # 1-shard engines' launches alone)
+    one = EngineConfig(device=DEVICE, shards=1, codec_policy="svb")
+    e0 = QueryEngine(idx, device=DEVICE, codec_policy="svb")
+    terms = rng.integers(0, len(idx.list_sizes), 1 << 16)
+    probes = rng.integers(0, e0.arena.stride + 2, 1 << 16)
+    search_want = e0.search_batch(terms, probes)
+    e0.intersect_batch(queries[:BATCH])  # warm-up: upload, mirror
+    svb_qps = qps_of(e0.intersect_batch, queries)
+    del e0
+    torch.cuda.empty_cache()
+
+    def run_e():
+        e1 = make_query_engine(idx, one)
+        for g, w in zip(e1.search_batch(terms, probes), search_want):
+            if not np.array_equal(g, w):
+                fail("shard path (e): 1-shard NextGEQ differs from unsharded")
+        e1.intersect_batch(queries[:BATCH])  # warm-up: mirror
+        t0 = time.perf_counter()
+        got, lat = serve.serve_batches(e1, queries, BATCH)
+        wall = time.perf_counter() - t0
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            fail("shard path (e): a 1-shard answer differs from phase 4's")
+        t1 = make_topk_engine(ridx, one.replace(resident="kernel"))
+        if not same_topk(t1.topk_batch(rqueries, TOPK), rwant):
+            fail("shard path (e): a 1-shard top-k differs from phase 6's")
+        check_contrib(t1, "e")
+        if (e1.sharded.mesh is None or e1._smap_fn is None
+                or t1._smap_fn is None or t1._smap_pivot is None):
+            fail("shard path (e): shards=1 did not take the dispatch path")
+        return e1, t1, {
+            "qps": len(queries) / wall,
+            "batch_p50_s": float(np.percentile(lat, 50)),
+            "batch_p99_s": float(np.percentile(lat, 99)),
+            "batch_s": lat}
+
+    (e1, t1, summ), launches = counted(
+        run_e, ["decode_search", "bm25_score_probe", "pivot_select"])
+    # held to the unsharded engine over the same svb arena
+    shard_line("e-one-shard", e1, summ, launches, card, svb_qps)
+    del e1, t1
+    torch.cuda.empty_cache()
+    dt = time.perf_counter() - t_phase
+    # the budget is the run's time limit shared out, not a correctness
+    # gate: a slow host prints over it, and the depth is cut in the source
+    print(f"[chip_smoke] shard path: runs (a)-(e) passed in {dt:.1f}s, "
+          f"{'within' if dt <= SHARD_PHASE_S else 'OVER'} the phase's "
+          f"{SHARD_PHASE_S:.0f}s budget [{card}]", flush=True)
+    return totals
 
 
 def pivot_edge_cases(torch) -> int:
@@ -1803,6 +2154,10 @@ def main(argv=None) -> int:
     # 6b. the serving loop over the ranked path's engine, counted
     loop_launches = run_loop_path(rres, torch, serve, all_counters, card)
 
+    # 6c. sharded serving: replicas, faults, checkpoints, recovery, counted
+    shard_launches = run_shard_path(res, rres, torch, serve, all_counters,
+                                    card)
+
     # 7. each kernel against its plain version
     kernels = check_kernels(torch, res, ef_engine, launches, card,
                             bool_profile)
@@ -1812,6 +2167,7 @@ def main(argv=None) -> int:
     kernels.append(bag_row)
     for row in kernels:
         row["loop_launches"] = loop_launches.get(row["name"], 0)
+        row["shard_launches"] = shard_launches.get(row["name"], 0)
     if len(kernels) != N_KERNELS:
         fail(f"the kernels line has {len(kernels)} rows, not {N_KERNELS}")
     print(f"[chip_smoke] all phases passed in "

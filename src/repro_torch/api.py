@@ -10,9 +10,10 @@ Legacy keywords keep working through one coercion point
 (``coerce_config``): keywords alone are lifted into a config; a keyword
 that CONFLICTS with an explicit ``config=`` wins with a
 ``DeprecationWarning``; an unknown keyword raises ``TypeError``.
-Sharding, replicas and fault injection keep their fields, so a config
-file of the reference still loads, but a non-default value raises
-``NotImplementedError`` until the sharding slice of the port lands.
+``shard_mesh`` takes ``"auto"``, ``None`` or a sequence of torch devices,
+one per shard (the counterpart of the reference's ``Mesh`` with a
+"shard" axis); a device may repeat, so several shards can share one card.
+``fault_injector`` is a live object and is deliberately NOT serializable.
 """
 
 from __future__ import annotations
@@ -41,12 +42,12 @@ class EngineConfig:
     group: bool = True             # group duplicate cursors
     resident: str = "auto"         # ranked residency: "auto" | "mirror" | "kernel"
     codec_policy: str = "auto"     # arena codec: "svb" | "auto" | "ef"
-    shards: int | None = None      # list-hash shard count (sharding slice)
-    shard_mesh: object = "auto"    # (sharding slice)
-    replicas: int = 1              # replica placement factor (sharding slice)
+    shards: int | None = None      # list-hash shard count (None = unsharded)
+    shard_mesh: object = "auto"    # "auto" | None | one torch device per shard
+    replicas: int = 1              # replica placement factor (R <= S)
     cache_parts: int = 32_768      # LRU entry bound
     cache_bytes: int = 256 << 20   # LRU / flat-mirror byte budget
-    fault_injector: object = None  # (sharding slice; never serialized)
+    fault_injector: object = None  # live ShardFaultInjector (not serialized)
 
     def __post_init__(self):
         if self.codec_policy not in CODEC_POLICIES:
@@ -58,6 +59,8 @@ class EngineConfig:
             raise ValueError(
                 f"backend must be one of {BACKENDS}, got {self.backend!r}"
             )
+        if self.shards is not None:
+            shard_mesh_devices(self.shard_mesh, self.shards)
 
     def replace(self, **updates) -> "EngineConfig":
         """A copy with the given fields replaced (frozen-dataclass update)."""
@@ -101,7 +104,8 @@ class EngineConfig:
                 base = cls.from_json(fh.read())
         updates = {}
         for name in ("backend", "device", "fused", "group", "resident",
-                     "cache_parts", "cache_bytes"):
+                     "shards", "shard_mesh", "replicas", "cache_parts",
+                     "cache_bytes"):
             val = getattr(ns, name, None)
             if val is not None:
                 updates[name] = val
@@ -133,26 +137,29 @@ def coerce_config(engine: str, config, explicit: dict, extra: dict):
                 stacklevel=3,
             )
         updates[name] = val
-    cfg = cfg.replace(**updates) if updates else cfg
-    check_slice(cfg)
-    return cfg
+    return cfg.replace(**updates) if updates else cfg
 
 
-def check_slice(cfg: EngineConfig) -> None:
-    """Refuse the options whose slice of the port has not landed yet."""
-    if cfg.shards is not None:
-        raise NotImplementedError(
-            "shards: sharded serving comes with the sharding slice of the port"
+def shard_mesh_devices(mesh, n_shards: int):
+    """``mesh`` validated: ``"auto"`` and None pass through, a sequence
+    becomes a list of ``n_shards`` torch devices (one per shard, repeats
+    allowed).  Raises ``ValueError`` on anything else."""
+    if mesh is None or (isinstance(mesh, str) and mesh == "auto"):
+        return mesh
+    if isinstance(mesh, (str, bytes, torch.device)) or not hasattr(
+        mesh, "__len__"
+    ):
+        raise ValueError(
+            "shard_mesh must be 'auto', None or a sequence of one torch "
+            f"device per shard, got {mesh!r}"
         )
-    if cfg.replicas != 1:
-        raise NotImplementedError(
-            "replicas: replica placement comes with the sharding slice"
+    devs = [torch.device(d) for d in mesh]
+    if len(devs) != n_shards:
+        raise ValueError(
+            f"shard_mesh names {len(devs)} devices, need one per shard "
+            f"({n_shards}, 1:1)"
         )
-    if cfg.fault_injector is not None:
-        raise NotImplementedError(
-            "fault_injector: fault-tolerant serving comes with the sharding "
-            "slice"
-        )
+    return devs
 
 
 def resolve_backend(backend: str) -> str:

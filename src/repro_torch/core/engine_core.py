@@ -1,12 +1,16 @@
 """Flat-mirror / locate / dispatch machinery of the batched engine.
 
-Counterpart of ``repro/core/engine_core.py`` (the shard hooks come with
-the sharding slice).  A batch of (term, probe) cursors is served by
-locating each cursor's arena row with ONE searchsorted over globally
-monotone keys, then resolving the cursor inside the located row.  The
-ranked engine adds the Block-Max pivot halves (``pivot_graph``,
-``pivot_score_graph``) over the bound-chunk table (``PivotChunks``) and
-the per-lane impact mirror (``lane_scores_fn`` -> ``flat_scores``).
+Counterpart of ``repro/core/engine_core.py``.  A batch of (term, probe)
+cursors is served by locating each cursor's arena row with ONE
+searchsorted over globally monotone keys, then resolving the cursor
+inside the located row.  The ranked engine adds the Block-Max pivot
+halves (``pivot_graph``, ``pivot_score_graph``) over the bound-chunk
+table (``PivotChunks``) and the per-lane impact mirror
+(``lane_scores_fn`` -> ``flat_scores``).
+One ``EngineCore`` serves ONE ``DeviceArena`` -- the sharded engines hold
+a core per shard (see ``repro_torch.core.shard``) and route cursors
+between them; ``shard_id`` / ``injector`` make such a core a shard
+dispatch boundary for fault injection.
 
 The subtleties, kept exactly as the reference has them:
 
@@ -242,7 +246,7 @@ class EngineCore:
 
     Parameters
     ----------
-    arena: the ``DeviceArena`` to serve.
+    arena: the ``DeviceArena`` to serve (global, or one shard's sub-arena).
     backend: "auto" (= "torch") | "torch" | "numpy".
     device: torch device of the "torch" backend (a CUDA device must exist
         when one is named).
@@ -255,6 +259,9 @@ class EngineCore:
         arena lane; when given, ``flat_init`` masks padding lanes to 0 and
         keeps the flat per-lane score mirror (TopKEngine's impact mirror).
     stats: optional dict to count into; missing keys are created.
+    shard_id / injector: when this core serves one shard of a
+        ``ShardedArena``, the ``ShardFaultInjector`` consulted at every
+        fused dispatch (the host-loop shard boundary).
     """
 
     def __init__(
@@ -267,8 +274,14 @@ class EngineCore:
         mirror_backend: str | None = None,
         lane_scores_fn=None,
         stats: dict | None = None,
+        shard_id: int | None = None,
+        injector=None,
     ):
         self.arena = arena
+        # host-loop shard-dispatch fault boundary: the mirror of the
+        # device-list dispatchers' check in core.shard
+        self.shard_id = shard_id
+        self.injector = injector
         self.backend = resolve_backend(backend)
         if self.backend not in ("torch", "numpy"):
             raise ValueError(f"unknown backend {backend!r}")
@@ -489,8 +502,10 @@ class EngineCore:
         """
         a = self.arena
         n = len(terms)
-        if n == 0:
-            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        if n == 0 or a.n_blocks == 0:
+            # nothing to locate in (an empty shard): every cursor is past
+            # the end, and no kernel is launched
+            return np.full(n, -1, np.int64), np.full(n, -1, np.int64)
         dev = a.on(self.device)
         tp, pp = stage_cursors(terms, probes, a.stride, pow2_bucket(n))
         # padding cursors repeat the first cursor: list 0 at docID 0 may
@@ -533,7 +548,7 @@ class EngineCore:
         order is pure indexing, so results do not depend on the split.
         """
         a = self.arena
-        if a.block_codec is None:
+        if a.block_codec is None or a.n_blocks == 0:
             return self._dispatch(False, terms, probes)
         terms = np.asarray(terms, dtype=np.int64)
         probes = np.asarray(probes, dtype=np.int64)
@@ -567,6 +582,10 @@ class EngineCore:
         value/rank are meaningful only where ``~past`` (the device pipeline
         pre-masks them to -1, which is equivalent for every caller).
         """
+        if self.injector is not None and self.shard_id is not None:
+            self.injector.check(self.shard_id)
+        if self.shard_id is not None:
+            obs.count("shard_dispatch", shard=str(self.shard_id), path="host_loop")
         if self.use_device:
             with obs.span("decode_search", backend=self.backend):
                 value, rank = self.search_device(terms, probes)

@@ -1,9 +1,8 @@
 """Batched query engine over the block arena of a ``PartitionedIndex``.
 
-Counterpart of ``repro/core/query_engine.py`` without sharding (that comes
-with the sharding slice).  The engine evaluates MANY boolean-AND queries
-per call.  Two generations of the batched path coexist (``fused=``
-selects; both are exact):
+Counterpart of ``repro/core/query_engine.py``.  The engine evaluates MANY
+boolean-AND queries per call.  Two generations of the batched path coexist
+(``fused=`` selects; both are exact):
 
 **Fused path (default).**  The index's ``DeviceArena`` stores every
 partition as whole 512-byte Stream-VByte tiles (or Elias-Fano tiles in a
@@ -19,6 +18,19 @@ multi-codec arena) with per-block sidecars.  NextGEQ for a whole batch is:
 On ``backend="torch"`` the whole pipeline runs on ``device`` over the
 once-uploaded arena, with one host sync per dispatch.  On
 ``backend="numpy"`` the same pipeline runs vectorized on the host.
+
+**Sharded path (``shards=N``).**  The arena is list-hash-partitioned into
+N per-shard sub-arenas (``core.shard.ShardedArena``).  Cursors route to
+their owning shard on the host; each shard runs the SAME fused pipeline
+over its sub-arena -- as one dispatch over a device list (one device per
+shard) when ``shard_mesh`` gives one, else as a per-shard loop on the
+engine's device -- and results merge on the host only at the result
+boundary (values are absolute docIDs and ranks partition-local, so the
+merge is a pure scatter).  A 1-shard ``ShardedArena`` is bit-identical to
+the unsharded path.  Sharding is a device-PLACEMENT concept: the numpy
+backend has no devices to place shards on, so it serves sharded engines
+through the global flat mirror unrouted; the routed host path stays
+available as ``_fused_sharded``.
 
 **Partition-LRU path (``fused=False``).**  Partition-level location plus
 an LRU cache of decoded partitions, bounded by decoded BYTES
@@ -76,8 +88,17 @@ class QueryEngine:
     group: group duplicate (term, probe) cursors before the DEVICE
         dispatch, so each block row is gathered and decoded once.
     codec_policy: the arena codec policy ("svb" | "auto" | "ef").
-    shards / shard_mesh / replicas / fault_injector: accepted for config
-        compatibility; non-default values raise NotImplementedError.
+    shards: list-hash-partition the arena into this many shards and route
+        cursors per shard (requires ``fused=True``).  None = unsharded.
+    shard_mesh: "auto" | None | a sequence of torch devices, one per shard.
+        "auto" places shard i on ``cuda:i`` when the process sees enough
+        cards (the one-dispatch path); None (or too few cards) serves
+        shards as a host-side loop on ``device``.
+    replicas: place each list on this many shards; routing prefers the
+        primary, so R > 1 changes nothing until a shard is marked dead and
+        its lists fail over to live replicas -- bit-identically.
+    fault_injector: optional ``ShardFaultInjector`` consulted at every
+        shard dispatch, normally wired by ``ResilientEngine``.
     """
 
     def __init__(
@@ -125,6 +146,7 @@ class QueryEngine:
                 "evictions": 0,
                 "fused_batches": 0,
                 "grouped_cursors": 0,
+                "sharded_batches": 0,
             },
             engine="query",
         )
@@ -135,6 +157,21 @@ class QueryEngine:
         )
         self.backend = self.core.backend
         self.device = self.core.device
+
+        self.sharded = None
+        self._shard_cores: list[EngineCore] = []
+        self._smap_fn = None
+        self.fault_injector = cfg.fault_injector
+        if cfg.shards is not None:
+            if not self.fused:
+                raise ValueError("shards= requires the fused engine "
+                                 "(fused=True)")
+            from .shard import ShardedArena
+
+            self.sharded = ShardedArena.build(
+                self.arena, int(cfg.shards), mesh=cfg.shard_mesh,
+                replicas=int(cfg.replicas), device=self.device,
+            )
 
         a = self.arena
         self.stride = a.stride
@@ -223,7 +260,77 @@ class QueryEngine:
     # ------------------------------------------------------------------
     @property
     def _use_device(self) -> bool:
+        if self.sharded is not None:
+            # all_device_ok reads the routing metadata alone -- it must not
+            # force the per-shard arena slices to materialize
+            return self.backend == "torch" and self.sharded.all_device_ok
         return self.core.use_device
+
+    def _shard_core(self, s: int) -> EngineCore:
+        """Per-shard EngineCores, materialized on first ROUTED dispatch
+        (the numpy backend never routes, so it never pays for them)."""
+        if not self._shard_cores:
+            self._shard_cores = [
+                EngineCore(
+                    sub, backend=self.backend, device=self.device,
+                    cache_parts=self.cache_parts,
+                    cache_bytes=self.cache_bytes, stats=self.stats,
+                    shard_id=i, injector=self.fault_injector,
+                )
+                for i, sub in enumerate(self.sharded.shards)
+            ]
+        return self._shard_cores[s]
+
+    def _fused_sharded(self, terms, probes, with_rank: bool = True,
+                       trusted: bool = False):
+        """Route cursors to owning shards, dispatch per shard, merge.
+
+        The merge is a pure scatter: values are absolute docIDs and ranks
+        are partition-local, so neither needs rebasing across shards.  With
+        a device list the ``ShardMapSearch`` dispatch stages each shard's
+        run on its device and fetches after every shard is enqueued; the
+        loop path serves each shard through its own ``EngineCore``.
+        """
+        from .shard import ShardMapSearch, ShardsUnavailable
+
+        sa = self.sharded
+        n = len(terms)
+        self.stats["sharded_batches"] += 1
+        owner, local, served = sa.route(terms)
+        if not served.all():
+            raise ShardsUnavailable(np.unique(np.asarray(terms)[~served]))
+        order = np.argsort(owner, kind="stable")
+        cuts = np.searchsorted(owner[order], np.arange(sa.n_shards + 1))
+        value = np.full(n, -1, np.int64)
+        rank = np.full(n, -1, np.int64) if with_rank else None
+        past = np.ones(n, bool)
+        # the device-list dispatch is single-codec (one decode_search per
+        # shard): ShardedArena.build gives a multi-codec arena no mesh, so
+        # it serves shards through the host loop, whose per-shard
+        # EngineCores dispatch per codec
+        if self._use_device and sa.mesh is not None:
+            if self._smap_fn is None:
+                self._smap_fn = ShardMapSearch(
+                    sa, injector=self.fault_injector
+                )
+            v, r = self._smap_fn(local[order], probes[order], cuts)
+            value[order] = v
+            past[order] = v < 0
+            if with_rank:
+                rank[order] = r
+            return value, rank, past
+        for s in range(sa.n_shards):
+            idx = order[cuts[s] : cuts[s + 1]]
+            if len(idx) == 0:
+                continue
+            v, r, p = self._shard_core(s).fused_search(
+                local[idx], probes[idx], with_rank, trusted
+            )
+            value[idx] = v
+            past[idx] = p
+            if with_rank and r is not None:
+                rank[idx] = r
+        return value, rank, past
 
     def _fused_raw(self, terms, probes, with_rank: bool = True,
                    trusted: bool = False):
@@ -235,16 +342,25 @@ class QueryEngine:
         self.stats["fused_batches"] += 1
         if self._use_device and self.group and n > 1:
             # group duplicate (term, probe) cursors: AND filters across
-            # queries sharing terms re-probe the same pairs
+            # queries sharing terms re-probe the same pairs.  Grouping runs
+            # BEFORE shard routing, so duplicates collapse across the whole
+            # batch whatever shard they land on.
             g = group_cursors(terms, probes, self.arena.stride)
             if g is not None:
                 idx, inv = g
                 self.stats["grouped_cursors"] += n - len(idx)
-                value, rank, past = self.core.fused_search(
+                value, rank, past = self._fused_raw_unique(
                     terms[idx], probes[idx], with_rank, trusted
                 )
                 rank = rank[inv] if rank is not None else None
                 return value[inv], rank, past[inv]
+        return self._fused_raw_unique(terms, probes, with_rank, trusted)
+
+    def _fused_raw_unique(self, terms, probes, with_rank, trusted):
+        # the numpy backend serves through the global flat mirror (no
+        # devices to place shards on); the torch backend routes per shard
+        if self.sharded is not None and self._use_device:
+            return self._fused_sharded(terms, probes, with_rank, trusted)
         return self.core.fused_search(terms, probes, with_rank, trusted)
 
     def search_batch(self, terms, probes) -> tuple[np.ndarray, np.ndarray]:
@@ -339,6 +455,8 @@ class QueryEngine:
 
     def decode_list(self, t: int) -> np.ndarray:
         if self.fused:
+            # always the global core: list decode is a HOST mirror op (the
+            # candidate seed of the AND filter), not a shard dispatch
             return self.core.decode_list(t)
         sl = slice(
             int(self.index.list_part_offsets[t]),

@@ -8,7 +8,11 @@ the port never compile anything.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch, so a
 launch the CUDA runtime refused surfaces as an exception in the wrapper
-(:func:`check`) instead of as silent garbage.
+(:func:`check`) instead of as silent garbage.  A wrapper launches through
+:func:`launch`, which makes the tensors' card the CUDA runtime's current
+device for the call: the entry points set no device themselves, and a
+launch for a tensor on ``cuda:1`` while ``cuda:0`` is current would fail
+or read the wrong memory.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
@@ -131,6 +137,15 @@ def check(err: int, fn: str) -> None:
     """Raise if the C entry point reported a CUDA error for its launch."""
     if err != 0:
         raise RuntimeError(f"CUDA launch of {fn} failed: cudaError {err}")
+
+
+def launch(entry, name: str, device, *args) -> None:
+    """Call the bound C entry point ``entry(*args, stream)`` on ``device``:
+    under ``torch.cuda.device(device)``, with that device's current stream
+    as the last argument; raise if the launch failed."""
+    with torch.cuda.device(device):
+        check(entry(*args, torch.cuda.current_stream(device).cuda_stream),
+              name)
 
 
 def ptx(name: str) -> str:

@@ -56,12 +56,9 @@ def pivot_select(qb, nblk, qmin, rows):
     buf = torch.empty(a + 3 * n, dtype=torch.int32, device=rows.device)
     if n:
         out = buf.data_ptr()
-        _build.check(
-            _entry()(qb.data_ptr(), nblk.data_ptr(), qmin.data_ptr(),
-                     rows.data_ptr(), out, out + 4 * a, n,
-                     torch.cuda.current_stream(rows.device).cuda_stream),
-            "blockmax_pivot_select",
-        )
+        _build.launch(_entry(), "blockmax_pivot_select", rows.device,
+                      qb.data_ptr(), nblk.data_ptr(), qmin.data_ptr(),
+                      rows.data_ptr(), out, out + 4 * a, n)
         pivot_select.launches += 1
     return (buf[:a].view(n, BLOCK_VALS), buf[a::3], buf[a + 1 :: 3],
             buf[a + 2 :: 3])

@@ -45,10 +45,6 @@ def _k1p1(k1p1) -> float:
     return float(k)  # exact in a C float
 
 
-def _stream(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def bm25_score_rows(flens, fdata, norm_q, idf, lob, table, k1p1, rows=None):
     """[n, 128] float32 contract scores of arena rows.
 
@@ -68,13 +64,10 @@ def bm25_score_rows(flens, fdata, norm_q, idf, lob, table, k1p1, rows=None):
     out = torch.empty((n, BLOCK_VALS), dtype=torch.float32, device=flens.device)
     if n:
         fn = _build.bind(_build.load(_LIB), "bm25_score_rows", 8, 1, 1)
-        _build.check(
-            fn(flens.data_ptr(), fdata.data_ptr(), norm_q.data_ptr(),
-               idf.data_ptr(), lob.data_ptr(), table.data_ptr(),
-               _build.ptr(rows), out.data_ptr(), n, _k1p1(k1p1),
-               _stream(flens)),
-            "bm25_score_rows",
-        )
+        _build.launch(fn, "bm25_score_rows", flens.device,
+                      flens.data_ptr(), fdata.data_ptr(), norm_q.data_ptr(),
+                      idf.data_ptr(), lob.data_ptr(), table.data_ptr(),
+                      _build.ptr(rows), out.data_ptr(), n, _k1p1(k1p1))
         bm25_score_rows.launches += 1
     return out
 
@@ -113,14 +106,12 @@ def bm25_score_probe(lens, data, block_base, codec_row, flens, fdata, norm_q,
     out = torch.empty(n, dtype=torch.float32, device=rows.device)
     if n:
         fn = _build.bind(_build.load(_LIB), "bm25_score_probe", 13, 1, 1)
-        _build.check(
-            fn(lens.data_ptr(), data.data_ptr(), block_base.data_ptr(),
-               _build.ptr(codec_row), flens.data_ptr(), fdata.data_ptr(),
-               norm_q.data_ptr(), idf.data_ptr(), lob.data_ptr(),
-               table.data_ptr(), rows.data_ptr(), pe.data_ptr(),
-               out.data_ptr(), n, _k1p1(k1p1), _stream(rows)),
-            "bm25_score_probe",
-        )
+        _build.launch(fn, "bm25_score_probe", rows.device,
+                      lens.data_ptr(), data.data_ptr(), block_base.data_ptr(),
+                      _build.ptr(codec_row), flens.data_ptr(),
+                      fdata.data_ptr(), norm_q.data_ptr(), idf.data_ptr(),
+                      lob.data_ptr(), table.data_ptr(), rows.data_ptr(),
+                      pe.data_ptr(), out.data_ptr(), n, _k1p1(k1p1))
         bm25_score_probe.launches += 1
     return out
 

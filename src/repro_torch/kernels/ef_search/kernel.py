@@ -45,13 +45,11 @@ def ef_search(lo, hi, lbits, block_base, rows, pe, codec_row=None):
     rank = torch.empty(n, dtype=torch.int32, device=rows.device)
     if n:
         fn = _build.bind(_build.load("ef_search"), "ef_search", 9, 1)
-        _build.check(
-            fn(lo.data_ptr(), hi.data_ptr(), lbits.data_ptr(),
-               block_base.data_ptr(), _build.ptr(codec_row), rows.data_ptr(),
-               pe.data_ptr(), value.data_ptr(), rank.data_ptr(), n,
-               torch.cuda.current_stream(rows.device).cuda_stream),
-            "ef_search",
-        )
+        _build.launch(fn, "ef_search", rows.device,
+                      lo.data_ptr(), hi.data_ptr(), lbits.data_ptr(),
+                      block_base.data_ptr(), _build.ptr(codec_row),
+                      rows.data_ptr(), pe.data_ptr(), value.data_ptr(),
+                      rank.data_ptr(), n)
         ef_search.launches += 1
     return value, rank
 

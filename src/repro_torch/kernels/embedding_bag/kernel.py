@@ -59,12 +59,9 @@ def embedding_bag(table, ids, weights):
     if B:
         name = TABLE_DTYPES[table.dtype]
         fn = _build.bind(_build.load("embedding_bag"), name, 4, 4)
-        _build.check(
-            fn(table.data_ptr(), ids.data_ptr(), weights.data_ptr(),
-               out.data_ptr(), B, K, V, D,
-               torch.cuda.current_stream(table.device).cuda_stream),
-            name,
-        )
+        _build.launch(fn, name, table.device, table.data_ptr(),
+                      ids.data_ptr(), weights.data_ptr(), out.data_ptr(),
+                      B, K, V, D)
         embedding_bag.launches += 1
     return out
 

@@ -40,12 +40,9 @@ def gain_scan(gaps):
         # tile size); the entry point zeroes what it uses
         scratch = torch.empty(nb + 1, dtype=torch.int64, device=gaps.device)
         fn = _build.bind(_build.load("gain_scan"), "gain_scan", 5, 1)
-        _build.check(
-            fn(gaps.data_ptr(), g.data_ptr(), mn.data_ptr(), mx.data_ptr(),
-               scratch.data_ptr(), nb,
-               torch.cuda.current_stream(gaps.device).cuda_stream),
-            "gain_scan",
-        )
+        _build.launch(fn, "gain_scan", gaps.device, gaps.data_ptr(),
+                      g.data_ptr(), mn.data_ptr(), mx.data_ptr(),
+                      scratch.data_ptr(), nb)
         gain_scan.launches += 1
     return g, mn, mx
 

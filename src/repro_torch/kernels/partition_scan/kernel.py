@@ -28,12 +28,9 @@ def _launch(deltas, F: int, mask, pos, bounds):
     number of emissions)."""
     carry = torch.empty(8, dtype=torch.int32, device=deltas.device)
     fn = _build.bind(_build.load("partition_scan"), "partition_scan", 5, 2)
-    _build.check(
-        fn(deltas.data_ptr(), _build.ptr(mask), _build.ptr(pos),
-           _build.ptr(bounds), carry.data_ptr(), deltas.shape[0], F,
-           torch.cuda.current_stream(deltas.device).cuda_stream),
-        "partition_scan",
-    )
+    _build.launch(fn, "partition_scan", deltas.device, deltas.data_ptr(),
+                  _build.ptr(mask), _build.ptr(pos), _build.ptr(bounds),
+                  carry.data_ptr(), deltas.shape[0], F)
     partition_scan.launches += 1
     return carry
 

@@ -55,15 +55,12 @@ def pivot_score(qb, nblk, base, qmin, rows, flens, fdata, norm_q, idf, lob,
                           device=dev)
     if n:
         fn = _build.bind(_build.load("pivot_score"), "pivot_score", 14, 2, 1)
-        _build.check(
-            fn(qb.data_ptr(), nblk.data_ptr(), base.data_ptr(),
-               qmin.data_ptr(), rows.data_ptr(), flens.data_ptr(),
-               fdata.data_ptr(), norm_q.data_ptr(), idf.data_ptr(),
-               lob.data_ptr(), table.data_ptr(), out.data_ptr(),
-               aux.data_ptr(), sscores.data_ptr(), n, norm_q.shape[0],
-               _k1p1(k1p1), torch.cuda.current_stream(dev).cuda_stream),
-            "pivot_score",
-        )
+        _build.launch(fn, "pivot_score", dev, qb.data_ptr(),
+                      nblk.data_ptr(), base.data_ptr(), qmin.data_ptr(),
+                      rows.data_ptr(), flens.data_ptr(), fdata.data_ptr(),
+                      norm_q.data_ptr(), idf.data_ptr(), lob.data_ptr(),
+                      table.data_ptr(), out.data_ptr(), aux.data_ptr(),
+                      sscores.data_ptr(), n, norm_q.shape[0], _k1p1(k1p1))
         pivot_score.launches += 1
     return out, aux[:, 0], aux[:, 1], aux[:, 2], sscores
 

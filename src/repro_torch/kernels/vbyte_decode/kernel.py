@@ -57,10 +57,6 @@ def require(t, name: str, dtype, width: int | None = None, ndim: int = 2,
         raise ValueError(f"{name}: too large for int32 indexing")
 
 
-def _stream(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def decode_blocks(lens, data, rows=None):
     """[n,128] int32 decoded values (gap - 1) of arena rows.
 
@@ -79,11 +75,9 @@ def decode_blocks(lens, data, rows=None):
     out = torch.empty((n, BLOCK_VALS), dtype=torch.int32, device=lens.device)
     if n:
         fn = _build.bind(_build.load(_LIB), "vbyte_decode_blocks", 4, 1)
-        _build.check(
-            fn(lens.data_ptr(), data.data_ptr(), _build.ptr(rows),
-               out.data_ptr(), n, _stream(lens)),
-            "vbyte_decode_blocks",
-        )
+        _build.launch(fn, "vbyte_decode_blocks", lens.device,
+                      lens.data_ptr(), data.data_ptr(), _build.ptr(rows),
+                      out.data_ptr(), n)
         decode_blocks.launches += 1
     return out
 
@@ -117,12 +111,10 @@ def decode_search(lens, data, block_base, rows, pe, codec_row=None):
     rank = torch.empty(n, dtype=torch.int32, device=rows.device)
     if n:
         fn = _build.bind(_build.load(_LIB), "vbyte_decode_search", 8, 1)
-        _build.check(
-            fn(lens.data_ptr(), data.data_ptr(), block_base.data_ptr(),
-               _build.ptr(codec_row), rows.data_ptr(), pe.data_ptr(),
-               value.data_ptr(), rank.data_ptr(), n, _stream(rows)),
-            "vbyte_decode_search",
-        )
+        _build.launch(fn, "vbyte_decode_search", rows.device,
+                      lens.data_ptr(), data.data_ptr(), block_base.data_ptr(),
+                      _build.ptr(codec_row), rows.data_ptr(), pe.data_ptr(),
+                      value.data_ptr(), rank.data_ptr(), n)
         decode_search.launches += 1
     return value, rank
 

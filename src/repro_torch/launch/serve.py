@@ -37,7 +37,20 @@ the backpressure bound), and the report adds sustained q/s, wave
 occupancy, deadline misses and end-to-end latency p50/p99/p99.9.
 ``--metrics-port`` serves the armed obs registry over HTTP and
 ``--metrics-dump`` writes its JSON snapshot at exit, on either path.
-Sharded and fault-injected serving come with a later slice.
+
+``--shards N`` list-hash-partitions the arena into N shards and routes
+every cursor batch per shard: one dispatch over a device per shard when
+the process sees N cards, a host-side loop of per-shard engines on
+``--device`` otherwise (the banner says which).  Results are identical to
+unsharded serving -- the merge is a pure scatter at the result boundary.
+``--replicas R`` places every list on R shards, and ``--faults`` /
+``--fault-prob`` inject shard deaths at the dispatch boundary: serving
+then runs through ``ResilientEngine`` -- retry with backoff, replica
+failover, degradation to live lists -- and reports availability,
+failures, failovers and recoveries.  ``--recover`` checkpoints the arena
+up front so DEAD shards restore from it and re-admit.
+``--compare-scalar`` is skipped after faults: degraded batches are not
+held to the oracle.
 """
 
 from __future__ import annotations
@@ -81,6 +94,131 @@ def serve_batches(engine, queries: list[list[int]], batch: int):
             results.extend(engine.intersect_batch(chunk))
         latencies.append(t.elapsed_s)
     return results, latencies
+
+
+def _print_shard_layout(engine) -> None:
+    sa = engine.sharded
+    if sa is None:
+        return
+    sizes = [len(f) for f in sa.lists_of]
+    mode = (
+        f"shard_map over {len(sa.mesh)} devices"
+        if sa.mesh is not None else "host loop (too few devices for a mesh)"
+    )
+    # sizes from ROUTING METADATA only: forcing sa.shards here would
+    # materialize the per-shard arena slices even on the numpy backend,
+    # which never routes
+    lbo = engine.arena.list_blk_offsets
+    blocks = [int((lbo[f + 1] - lbo[f]).sum()) for f in sa.lists_of]
+    per_blk = engine.arena.nbytes() / max(engine.arena.n_blocks, 1)
+    print(f"[serve] shards: {sa.n_shards} ({mode}); lists/shard {sizes}; "
+          f"~MB/shard {[round(b * per_blk / 1e6, 1) for b in blocks]}")
+
+
+def _make_resilient(args, engine):
+    """Wrap the engine for fault-injected serving, or None without
+    --faults/--fault-prob.  The checkpoint tempdir (with --recover) lives
+    until ``_close_resilient`` at the end of serving -- real deployments
+    point CheckpointManager at durable storage instead."""
+    if not args.faults and args.fault_prob == 0.0:
+        return None
+    from ..distributed.resilient import ResilientEngine, ShardFaultInjector
+
+    at = tuple(int(b) for b in args.faults.split(",")) if args.faults else ()
+    injector = ShardFaultInjector(
+        at_batches=at, probability=args.fault_prob, seed=args.seed,
+        shards=tuple(range(args.cfg.shards)),
+    )
+    manager = None
+    if args.recover:
+        import tempfile
+
+        from ..checkpoint import CheckpointManager
+
+        manager = CheckpointManager(
+            tempfile.mkdtemp(prefix="arena-ckpt-"), async_save=False
+        )
+    res = ResilientEngine(engine, injector=injector, manager=manager)
+    if manager is not None:
+        res.checkpoint()
+    return res
+
+
+def _close_resilient(res) -> None:
+    """End fault-injected serving: join any background restore, then
+    remove the --recover checkpoint tempdir."""
+    if res is None or res.manager is None:
+        return
+    import shutil
+
+    res.wait_recovered()
+    res.manager.wait()
+    shutil.rmtree(res.manager.dir, ignore_errors=True)
+
+
+def serve_resilient(res, queries, batch: int, topk: int | None = None):
+    """Serve all queries through a ResilientEngine; returns (results,
+    latencies, n_degraded_queries)."""
+    results: list = []
+    lat: list[float] = []
+    degraded_q = 0
+    for i in range(0, len(queries), batch):
+        chunk = queries[i : i + batch]
+        with obs.timer("serve_batch_ms", path="resilient") as t:
+            if topk is None:
+                out, info = res.intersect_batch(chunk)
+            else:
+                out, info = res.topk_batch(chunk, topk)
+        lat.append(t.elapsed_s)
+        results.extend(out)
+        if info.degraded:
+            miss = set(info.missing_lists.tolist())
+            degraded_q += sum(
+                1 for q in chunk if any(int(t) in miss for t in q)
+            )
+    return results, lat, degraded_q
+
+
+def _print_fault_summary(res, n_queries: int, degraded_q: int) -> dict:
+    """Print the fault lines; returns them as a dict (``availability``,
+    ``degraded_queries``, the stats counters, ``recovery_p99_s``,
+    ``health``, and with a checkpoint its ``checkpoint_bytes``,
+    ``checkpoint_s`` and ``restore_s``)."""
+    stats = res.stats
+    avail = (n_queries - degraded_q) / max(n_queries, 1)
+    p99 = res.recovery_p99_s()
+    rec = f"{p99 * 1e3:.1f} ms" if p99 == p99 else "n/a"
+    print(f"[serve] faults: availability {avail:.4f} "
+          f"({n_queries - degraded_q}/{n_queries} exact, "
+          f"{degraded_q} degraded), failures {stats['failures']}, "
+          f"retries {stats['retries']}, failovers {stats['failovers']}, "
+          f"recoveries {stats['recoveries']} (p99 {rec})")
+    print(f"[serve] shard health: {res.health}")
+    out = {
+        "availability": avail, "degraded_queries": degraded_q,
+        **{k: v for k, v in stats.items() if k != "recovery_s"},
+        "recovery_p99_s": p99, "health": list(res.health),
+    }
+    if res.checkpoint_bytes is not None:
+        print(f"[serve] arena checkpoint: {res.checkpoint_bytes:,} B, save "
+              f"{res.checkpoint_s:.3f}s, shard restores "
+              f"{[round(t, 3) for t in res.restore_s]}s")
+        out.update(checkpoint_bytes=res.checkpoint_bytes,
+                   checkpoint_s=res.checkpoint_s,
+                   restore_s=list(res.restore_s))
+    return out
+
+
+def _device_bytes(engine) -> dict:
+    """Bytes the engine holds on its device(s): the arena, or with shards
+    each shard's sub-arena (None off the device backend)."""
+    if engine.device is None:
+        return {"arena_device_bytes": None, "shard_device_bytes": None}
+    if engine.sharded is not None:
+        return {"arena_device_bytes": None,
+                "shard_device_bytes": engine.sharded.shard_device_nbytes()}
+    return {"arena_device_bytes": engine.arena.device_nbytes(engine.device),
+            "shard_device_bytes": None}
 
 
 def serve_loop(args, engine, queries) -> dict:
@@ -236,6 +374,25 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--config", default=None, metavar="PATH",
                     help="EngineConfig JSON file supplying the engine "
                          "options; explicit flags override its fields")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="list-hash-partition the arena into N shards: one "
+                         "dispatch over a card per shard when the process "
+                         "sees N cards, a host-side shard loop otherwise")
+    ap.add_argument("--replicas", type=int, default=None,
+                    help="place every list on R shards; routing prefers "
+                         "the primary, replicas carry its lists "
+                         "bit-identically when it dies")
+    ap.add_argument("--faults", default=None,
+                    help="comma-separated batch indices at which a shard "
+                         "dies (e.g. '2,5'); serves through the "
+                         "ResilientEngine health state machine")
+    ap.add_argument("--fault-prob", type=float, default=0.0,
+                    help="per-batch shard-death probability (seeded by "
+                         "--seed), instead of/alongside --faults")
+    ap.add_argument("--recover", action="store_true",
+                    help="checkpoint the arena up front (OptVB-packed "
+                         "sidecars) and restore DEAD shards' sub-arenas "
+                         "from it, re-admitting them")
     ap.add_argument("--compare-scalar", action="store_true",
                     help="also time the per-query NextGEQ loop (the "
                          "exhaustive BM25 oracle with --ranked) and verify "
@@ -273,18 +430,27 @@ def build_parser() -> argparse.ArgumentParser:
 def parse_args(argv=None) -> argparse.Namespace:
     ap = build_parser()
     args = ap.parse_args(argv)
+    args.cfg = EngineConfig.from_args(args)
+    if args.cfg.shards is not None and not args.cfg.fused and not args.ranked:
+        # the ranked engine has no fused= knob; only boolean-AND serving
+        # needs the fused pipeline for sharding
+        ap.error("--shards requires the fused engine (drop --no-fused)")
+    if (args.faults or args.fault_prob) and args.cfg.shards is None:
+        ap.error("--faults/--fault-prob require --shards")
     if args.loop and not args.ranked:
         ap.error("--loop serves ranked top-k; add --ranked")
-    args.cfg = EngineConfig.from_args(args)
+    if args.loop and (args.faults or args.fault_prob):
+        ap.error("--loop and fault injection are separate lanes; "
+                 "drop --faults/--fault-prob")
     return args
 
 
 def run(args) -> dict:
-    """The boolean-AND serving path; returns what it built and measured.
+    """The serving paths: build the corpus and its index, then serve.
 
-    Keys: ``index``, ``engine``, ``queries``, ``results``, ``n_postings``,
-    ``build_s``, ``bpi``, ``arena_device_bytes`` (None off the device
-    backend), ``qps``, ``batch_p50_s``, ``batch_p99_s``.
+    Boolean AND returns ``serve_boolean``'s keys plus ``index``,
+    ``queries``, ``n_postings``, ``build_s`` and ``bpi``; ``--ranked``
+    returns ``run_ranked``'s.
     """
     cfg = args.cfg
     if resolve_backend(cfg.backend) == "torch":
@@ -316,23 +482,49 @@ def run(args) -> dict:
         [int(t) for t in q]
         for q in make_queries(rng, args.n_lists, args.queries, args.arity)
     ]
+    return {
+        "index": idx,
+        "queries": queries,
+        "n_postings": n_postings,
+        "build_s": t_build,
+        "bpi": idx.bits_per_int(),
+        **serve_boolean(args, idx, queries),
+    }
+
+
+def serve_boolean(args, idx, queries) -> dict:
+    """Serve boolean-AND ``queries`` over a built ``idx`` with the engine
+    ``args.cfg`` describes (sharded and fault-injected per the flags).
+
+    Keys: ``engine``, ``results``, ``arena_device_bytes`` (None off the
+    device backend or when sharded), ``shard_device_bytes`` (per shard
+    when sharded on the device), ``qps``, ``batch_s`` (every batch's
+    seconds), ``batch_p50_s``, ``batch_p99_s``,
+    ``resilient`` (the ``ResilientEngine``, or None) and ``faults`` (its
+    summary, or None).
+    """
+    cfg = args.cfg
     t0 = obs.now()
     engine = make_query_engine(idx, cfg)
-    dev_bytes = None
-    if engine.device is not None:
-        dev_bytes = engine.arena.device_nbytes(engine.device)
+    _print_shard_layout(engine)
     t_arena = obs.now() - t0
     a = engine.arena
     print(f"[serve] arena ({cfg.codec_policy}): {a.n_blocks:,} blocks, "
-          f"{a.nbytes()/1e6:.1f} MB host"
-          + (f", {dev_bytes/1e6:.1f} MB on {engine.device}"
-             if dev_bytes is not None else "")
-          + f" ({t_arena:.1f}s)")
-    # warm-up batch: first kernel build and launch, flat mirror / LRU fill
+          f"{a.nbytes()/1e6:.1f} MB host ({t_arena:.1f}s)")
+    # warm-up batch: first kernel build and launch, arena upload, flat
+    # mirror / LRU fill
     engine.intersect_batch(queries[: args.batch])
+    resilient = _make_resilient(args, engine)
 
     t0 = obs.now()
-    results, lat = serve_batches(engine, queries, args.batch)
+    try:
+        if resilient is not None:
+            results, lat, degraded_q = serve_resilient(resilient, queries,
+                                                       args.batch)
+        else:
+            results, lat = serve_batches(engine, queries, args.batch)
+    finally:
+        _close_resilient(resilient)
     wall = obs.now() - t0
     n_results = sum(r.size for r in results)
     sizes = [len(queries[i : i + args.batch])
@@ -340,12 +532,32 @@ def run(args) -> dict:
     per_q = [l / max(s, 1) for l, s in zip(lat, sizes)]
     path = "fused" if engine.fused else "partition-lru"
     where = engine.device if engine.device is not None else "host"
+    dev_bytes = _device_bytes(engine)
+    on_dev = (dev_bytes["arena_device_bytes"]
+              or sum(dev_bytes["shard_device_bytes"] or [0]))
     print(f"[serve] batched AND ({engine.backend}/{path} on {where}, "
           f"batch={args.batch}): {len(queries)/wall:,.0f} q/s, "
           f"{wall/len(queries)*1e3:.3f} ms/query avg, "
-          f"{n_results:,} results total")
+          f"{n_results:,} results total"
+          + (f"; {on_dev/1e6:.1f} MB on the device" if on_dev else ""))
     print(f"[serve] batch latency: {_latency_line(lat, per_q)}")
     print(f"[serve] engine stats: {dict(engine.stats)}")
+    out = {
+        "engine": engine,
+        "results": results,
+        **dev_bytes,
+        "qps": len(queries) / wall,
+        "batch_s": lat,
+        "batch_p50_s": _percentile(lat, 50),
+        "batch_p99_s": _percentile(lat, 99),
+        "resilient": resilient,
+        "faults": None,
+    }
+    if resilient is not None:
+        # degraded batches must not be verified against the oracle
+        out["faults"] = _print_fault_summary(resilient, len(queries),
+                                             degraded_q)
+        return out
 
     if args.compare_scalar:
         n_check = min(len(queries), 128)
@@ -358,35 +570,16 @@ def run(args) -> dict:
         print(f"[serve] scalar loop: {dt/n_check*1e3:.2f} ms/query over "
               f"{n_check} queries -> batched speedup {speedup:.1f}x, "
               f"results identical")
-    return {
-        "index": idx,
-        "engine": engine,
-        "queries": queries,
-        "results": results,
-        "n_postings": n_postings,
-        "build_s": t_build,
-        "bpi": idx.bits_per_int(),
-        "arena_device_bytes": dev_bytes,
-        "qps": len(queries) / wall,
-        "batch_p50_s": _percentile(lat, 50),
-        "batch_p99_s": _percentile(lat, 99),
-    }
+    return out
 
 
 def run_ranked(args, rng, corpus, n_postings: int) -> dict:
     """The ``--ranked`` path: batched BM25 top-k over the freq arena.
 
-    Keys: ``index``, ``engine``, ``queries``, ``results``, ``n_postings``,
-    ``freqs_s`` (the tf generator), ``build_s`` (index + arena with its
-    ranked sidecar), ``bpi``, ``arena_device_bytes`` (None off the device
-    backend), ``qps``, ``batch_p50_s``, ``batch_p99_s``, ``oracle_s`` (per
-    query, None without ``--compare-scalar``).  With ``--loop`` the
-    warm-up batch is followed by ``serve_loop`` instead of the fixed
-    batches, and the keys from ``results`` on give way to ``loop``, its
-    summary.
+    Keys: ``index``, ``queries``, ``n_postings``, ``freqs_s`` (the tf
+    generator), ``build_s`` (index + arena with its ranked sidecar),
+    ``bpi``, then ``serve_ranked``'s.
     """
-    from ..ranked.bm25 import exhaustive_topk
-
     cfg = args.cfg
     t0 = obs.now()
     freqs = make_freqs(rng, corpus)
@@ -407,51 +600,91 @@ def run_ranked(args, rng, corpus, n_postings: int) -> dict:
         [int(t) for t in q]
         for q in make_queries(rng, args.n_lists, args.queries, args.arity)
     ]
-    engine = make_topk_engine(idx, cfg)
-    dev_bytes = None
-    if engine.device is not None:
-        dev_bytes = arena.device_nbytes(engine.device)
-    where = engine.device if engine.device is not None else "host"
-    print(f"[serve] ranked arena ({cfg.codec_policy}): {arena.n_blocks:,} "
-          f"blocks" + (f", {dev_bytes/1e6:.1f} MB on {where}"
-                       if dev_bytes is not None else ""))
-    t0 = obs.now()
-    engine.topk_batch(queries[: args.batch], args.topk)  # warm mirror + cache
-    print(f"[serve] warm-up batch: {obs.now()-t0:.1f}s (flat mirror"
-          + (", impact mirror" if engine.resident == "mirror" else "") + ")")
-    built = {
+    return {
         "index": idx,
-        "engine": engine,
         "queries": queries,
         "n_postings": n_postings,
         "freqs_s": t_freqs,
         "build_s": t_build,
         "bpi": idx.bits_per_int(),
-        "arena_device_bytes": dev_bytes,
+        **serve_ranked(args, idx, queries),
     }
+
+
+def serve_ranked(args, idx, queries) -> dict:
+    """Serve ranked top-k ``queries`` over a built freq-carrying ``idx``
+    with the engine ``args.cfg`` describes.
+
+    Keys: ``engine``, ``arena_device_bytes`` / ``shard_device_bytes`` (as
+    ``serve_boolean``), ``results``, ``qps``, ``batch_s``, ``batch_p50_s``,
+    ``batch_p99_s``, ``oracle_s`` (per query, None without
+    ``--compare-scalar``), ``resilient`` and ``faults``.  With ``--loop``
+    the warm-up batch is followed by ``serve_loop`` instead of the fixed
+    batches, and the keys from ``results`` on give way to ``loop``, its
+    summary.
+    """
+    from ..ranked.bm25 import exhaustive_topk
+
+    cfg = args.cfg
+    engine = make_topk_engine(idx, cfg)
+    _print_shard_layout(engine)
+    arena = engine.arena
+    where = engine.device if engine.device is not None else "host"
+    print(f"[serve] ranked arena ({cfg.codec_policy}): {arena.n_blocks:,} "
+          f"blocks, {engine.resident} residency on {where}")
+    t0 = obs.now()
+    engine.topk_batch(queries[: args.batch], args.topk)  # warm mirror + cache
+    print(f"[serve] warm-up batch: {obs.now()-t0:.1f}s (flat mirror"
+          + (", impact mirror" if engine.resident == "mirror" else "") + ")")
+    built = {"engine": engine, **_device_bytes(engine)}
     if args.loop:
         return {**built, "loop": serve_loop(args, engine, queries)}
+    resilient = _make_resilient(args, engine)
 
     t0 = obs.now()
-    results, lat = [], []
-    for i in range(0, len(queries), args.batch):
-        with obs.timer("serve_batch_ms", path="ranked") as bt:
-            results.extend(
-                engine.topk_batch(queries[i : i + args.batch], args.topk)
+    try:
+        if resilient is not None:
+            results, lat, degraded_q = serve_resilient(
+                resilient, queries, args.batch, topk=args.topk
             )
-        lat.append(bt.elapsed_s)
+        else:
+            results, lat = [], []
+            for i in range(0, len(queries), args.batch):
+                with obs.timer("serve_batch_ms", path="ranked") as bt:
+                    results.extend(engine.topk_batch(
+                        queries[i : i + args.batch], args.topk))
+                lat.append(bt.elapsed_s)
+    finally:
+        _close_resilient(resilient)
     wall = obs.now() - t0
     sizes = [len(queries[i : i + args.batch])
              for i in range(0, len(queries), args.batch)]
     per_q = [l / max(s, 1) for l, s in zip(lat, sizes)]
+    dev_bytes = _device_bytes(engine)
     print(f"[serve] ranked top-{args.topk} ({engine.backend}/"
           f"{engine.resident} on {where}, batch={args.batch}): "
           f"{len(queries)/wall:,.0f} q/s, "
           f"{wall/len(queries)*1e3:.3f} ms/query avg")
     print(f"[serve] batch latency: {_latency_line(lat, per_q)}")
     print(f"[serve] engine stats: {dict(engine.stats)}")
+    out = {
+        **built,
+        **dev_bytes,
+        "results": results,
+        "qps": len(queries) / wall,
+        "batch_s": lat,
+        "batch_p50_s": _percentile(lat, 50),
+        "batch_p99_s": _percentile(lat, 99),
+        "oracle_s": None,
+        "resilient": resilient,
+        "faults": None,
+    }
+    if resilient is not None:
+        # degraded batches must not be verified against the oracle
+        out["faults"] = _print_fault_summary(resilient, len(queries),
+                                             degraded_q)
+        return out
 
-    oracle_s = None
     if args.compare_scalar:
         n_check = min(len(queries), 64)
         t0 = obs.now()
@@ -461,19 +694,12 @@ def run_ranked(args, rng, corpus, n_postings: int) -> dict:
             assert np.array_equal(gd, wd) and np.array_equal(gs, ws), (
                 f"top-k mismatch on query {q}"
             )
-        oracle_s = dt / n_check
-        speedup = oracle_s / (wall / len(queries))
+        out["oracle_s"] = dt / n_check
+        speedup = out["oracle_s"] / (wall / len(queries))
         print(f"[serve] exhaustive oracle: {dt/n_check*1e3:.2f} ms/query "
               f"over {n_check} queries -> block-max speedup {speedup:.1f}x, "
               f"identical top-k")
-    return {
-        **built,
-        "results": results,
-        "qps": len(queries) / wall,
-        "batch_p50_s": _percentile(lat, 50),
-        "batch_p99_s": _percentile(lat, 99),
-        "oracle_s": oracle_s,
-    }
+    return out
 
 
 def main(argv=None) -> int:

@@ -1,11 +1,11 @@
 """Batched Block-Max BM25 top-k engine over the ranked arena.
 
-Counterpart of ``repro/ranked/topk_engine.py`` without sharding (that comes
-with the sharding slice).  Serves MANY disjunctive top-k queries per call
-with Block-Max WAND/MaxScore pruning over the arena's quantized per-block
-score upper bounds, while guaranteeing results IDENTICAL to the
-exhaustive-scoring oracle (``repro_torch.ranked.bm25.exhaustive_topk``):
-same docIDs, same scores, ties broken by ascending docID.
+Counterpart of ``repro/ranked/topk_engine.py``.  Serves MANY disjunctive
+top-k queries per call with Block-Max WAND/MaxScore pruning over the
+arena's quantized per-block score upper bounds, while guaranteeing
+results IDENTICAL to the exhaustive-scoring oracle
+(``repro_torch.ranked.bm25.exhaustive_topk``): same docIDs, same scores,
+ties broken by ascending docID.
 
 Phases per batch (all bound arithmetic in float64 over the f32 contract
 values, so it is exact):
@@ -41,6 +41,19 @@ touched rows into a bounded hot-block cache, and round A's theta raise and
 round B's UB filter ride in one device round (``theta_round_mask``).
 ``contributions()`` serves point lookups through ``bm25_score_probe`` (SVB
 blocks) and ``ef_search`` + ``bm25_score_rows`` (EF blocks).
+
+With ``shards=N`` the device paths route per shard
+(``core.shard.ShardedArena``): ``contributions()`` sends (term, doc)
+cursors to their owning shard's sub-arena and the pivot round sends each
+term's bound chunks to its shard -- as one dispatch over a device list
+(``ShardMapBM25`` / ``ShardMapPivot``) or as a loop over the shards on
+``device`` -- with the qmins broadcast to every shard's cursors and the
+kept blocks scattered back to global rows through
+``ShardedArena.rows_of``.  Only f32 contributions and kept rows cross the
+shard boundary, so the sharded engine is bit-identical to the unsharded
+one.  A sharded engine re-scores cache-miss rows through a host gather of
+the GLOBAL freq sidecar and takes no device theta round, as the
+reference does.
 
 The ``"torch"`` backend runs all of that on ``device`` (the CUDA kernels
 on a card, their plain versions for ``device="cpu"``); ``"numpy"`` runs
@@ -118,8 +131,15 @@ class TopKEngine:
         "auto" picks "kernel" on a CUDA device, "mirror" elsewhere.  Both
         return the oracle's exact top-k.
     codec_policy: the arena codec policy ("svb" | "auto" | "ef").
-    shards / shard_mesh / replicas / fault_injector: accepted for config
-        compatibility; non-default values raise NotImplementedError.
+    shards: list-hash-partition the arena and route the device dispatches
+        per shard (see the module docstring).  None = unsharded.
+    shard_mesh: "auto" | None | one torch device per shard, as in
+        ``QueryEngine``.
+    replicas: copies of each list across shards; routing prefers the
+        primary, so R > 1 is invisible until shards die and their lists
+        fail over -- bit-identically (pure-scatter merge).
+    fault_injector: optional ``ShardFaultInjector`` consulted at every
+        shard dispatch, normally wired by ``ResilientEngine``.
     """
 
     # largest single device dispatch: bigger batches are chunked to this
@@ -209,6 +229,24 @@ class TopKEngine:
         self._pchunks = None
         self._scache_rows = np.zeros(0, np.int64)  # sorted hot rows
         self._scache = np.zeros((0, BLOCK_VALS), np.float32)
+        self.sharded = None
+        self._smap_fn = None
+        self._smap_pivot = None
+        self.fault_injector = cfg.fault_injector
+        if cfg.shards is not None:
+            from ..core.shard import ShardedArena
+
+            self.sharded = ShardedArena.build(
+                self.arena, int(cfg.shards), mesh=cfg.shard_mesh,
+                replicas=int(cfg.replicas), device=self.device,
+            )
+
+    def _check_shard(self, s: int) -> None:
+        """Host-loop shard-dispatch fault boundary (the device-list
+        dispatchers carry their own check)."""
+        if self.fault_injector is not None:
+            self.fault_injector.check(s)
+        obs.count("shard_dispatch", shard=str(s), path="ranked")
 
     # ------------------------------------------------------------------
     # device plumbing
@@ -441,15 +479,31 @@ class TopKEngine:
             self.k1p1, self._up(rp),
         )
 
+    def _rowscore_gathered(self, mrows: np.ndarray) -> torch.Tensor:
+        """ONE ``bm25_score_rows`` launch over rows GATHERED on the host
+        from the global freq sidecar and uploaded (the reference's
+        host-gather wrapper): the rows' tiles, norm codes and idf."""
+        r = self.ranked
+        n = len(mrows)
+        return bm25_score_rows(
+            self._up(r.freq_lens[mrows]), self._up(r.freq_data[mrows]),
+            self._up(r.norm_q[mrows]), self._up(r.idf[self.lob[mrows]]),
+            self._up(np.arange(n, dtype=np.int32)),
+            self._up(r.norm_table.astype(np.float32)), self.k1p1,
+        )
+
     def _score_miss_rows(self, mrows: np.ndarray) -> np.ndarray:
-        """Score UNIQUE SORTED cache-miss rows: resident launches on the
-        torch backend, the numpy mirror otherwise."""
+        """Score UNIQUE SORTED cache-miss rows: resident launches on an
+        unsharded torch backend, launches over host-gathered rows on a
+        sharded one, the numpy mirror otherwise."""
         if self.core.use_device:
+            score = (self._rowscore_dev if self.sharded is None
+                     else self._rowscore_gathered)
             n = len(mrows)
             out = np.empty((n, BLOCK_VALS), np.float32)
             for s in range(0, n, self.MAX_BUCKET):
                 e = min(s + self.MAX_BUCKET, n)
-                res, = self._fetch(self._rowscore_dev(mrows[s:e]))
+                res, = self._fetch(score(mrows[s:e]))
                 out[s:e] = res[: e - s]
             return out
         r = self.ranked
@@ -484,10 +538,11 @@ class TopKEngine:
         qp[: e - s] = qmins[s:e]
         return self._up(rp), self._up(qp)
 
-    def _pivot_dev_on(self, rows, qmins):
-        """``pivot_select`` launches over the resident chunk table, chunked
-        at MAX_BUCKET.  Returns (kept lanes [n, 128], counts)."""
-        pcd = self._pivot_chunks_init().on(self.device)
+    def _pivot_dev_on(self, rows, qmins, pc=None):
+        """``pivot_select`` launches over one arena's resident chunk table
+        (the global one, or a shard's ``pc``), chunked at MAX_BUCKET.
+        Returns (kept lanes [n, 128], counts)."""
+        pcd = (pc or self._pivot_chunks_init()).on(self.device)
         n = len(rows)
         kept = np.empty((n, BLOCK_VALS), np.int64)
         cnt = np.empty(n, np.int64)
@@ -566,9 +621,15 @@ class TopKEngine:
         Returns ``(segments, params)``: ``segments[(i, j)] = (kept global
         rows, aligned rest of those rows)`` per query i / term slot j;
         ``params[(i, j)] = (mult_j, share_j)``.
+
+        Sharded (on the device), every chunk goes to its term's shard --
+        the qmin tiles broadcast to each shard's cursor runs -- and the
+        kept blocks scatter back to global rows via ``rows_of``.
         """
-        use_dev = self.core.use_device
-        pc = self._pivot_chunks_init()
+        use_dev = self._use_device
+        routed = self.sharded is not None and use_dev
+        pc = None if routed else self._pivot_chunks_init()
+        pcs = self.sharded.pivot_chunks if routed else None
         segments: dict = {}
         params: dict = {}
         rests: dict = {}
@@ -614,7 +675,7 @@ class TopKEngine:
         )
         qmin_all = np.maximum(qmin_all, np.repeat(q_share, sizes))
 
-        rows_l, qmin_l, cur_ij = [], [], []
+        rows_l, qmin_l, shard_l, cur_ij = [], [], [], []
         pair_cuts = np.zeros(len(pair_meta) + 1, np.int64)
         np.cumsum(sizes, out=pair_cuts[1:])
         for p, (i, j, t, nb_t) in enumerate(pair_meta):
@@ -622,7 +683,13 @@ class TopKEngine:
             if qmin_b.min() >= QMIN_NONE:
                 del params[(i, j)], rests[(i, j)]
                 continue  # no block of this term can reach theta
-            c0, c1 = int(pc.offsets[t]), int(pc.offsets[t + 1])
+            if routed:
+                s, lt = self.sharded.route_one(t)
+                offs = pcs[s].offsets
+                c0, c1 = int(offs[lt]), int(offs[lt + 1])
+                shard_l.append(np.full(c1 - c0, s, np.int64))
+            else:
+                c0, c1 = int(pc.offsets[t]), int(pc.offsets[t + 1])
             tile = np.full(((c1 - c0) * BLOCK_VALS,), QMIN_NONE, np.int64)
             tile[:nb_t] = qmin_b
             rows_l.append(np.arange(c0, c1, dtype=np.int64))
@@ -634,10 +701,14 @@ class TopKEngine:
         qmins_c = np.concatenate(qmin_l)
         self.stats["pivot_chunks"] += len(rows)
 
-        # ---- the pivot round
+        # ---- the pivot round (per shard when routed)
         if not use_dev:
             kept, cnt, _, _ = pivot_select_np(
                 pc.qb[rows], qmins_c, pc.nblk[rows]
+            )
+        elif routed:
+            kept, cnt, cur_ij, grows = self._pivot_routed(
+                rows, qmins_c, shard_l, cur_ij
             )
         else:
             # cursors whose slot scores will be read AND whose chunk is not
@@ -659,7 +730,8 @@ class TopKEngine:
                 kept[fuse], cnt[fuse] = self._pivot_score_dev_on(
                     rows[fuse], qmins_c[fuse], pc
                 )
-        grows = (pc.base[rows][:, None] + kept)[kept >= 0]
+        if not routed:
+            grows = (pc.base[rows][:, None] + kept)[kept >= 0]
         self.stats["blocks_kept"] += int(cnt.sum())
         gcuts = np.zeros(len(rows) + 1, np.int64)
         np.cumsum(cnt, out=gcuts[1:])
@@ -676,6 +748,51 @@ class TopKEngine:
             r0, rest = rests[ij]
             segments[ij] = (rows_k, rest[rows_k - r0])
         return segments, params
+
+    def _pivot_routed(self, rows, qmins, shard_l, cur_ij):
+        """The routed pivot round: cursors sorted by shard, ONE dispatch
+        over the device list (``ShardMapPivot``) or one ``pivot_select``
+        round per shard on the engine's device, then shard-local lanes ->
+        local rows -> GLOBAL rows (pure scatter).  Returns (kept, counts,
+        cur_ij) in shard order and the kept global rows."""
+        sa = self.sharded
+        pcs = sa.pivot_chunks
+        shards = np.concatenate(shard_l)
+        order = np.argsort(shards, kind="stable")
+        cuts = np.searchsorted(shards[order], np.arange(sa.n_shards + 1))
+        rows_o, qmins_o = rows[order], qmins[order]
+        cur_ij = [cur_ij[c] for c in order]
+        if sa.mesh is not None:
+            if self._smap_pivot is None:
+                from ..core.shard import ShardMapPivot
+
+                self._smap_pivot = ShardMapPivot(
+                    sa, max_bucket=self.MAX_BUCKET,
+                    injector=self.fault_injector,
+                )
+            kept, cnt, _, _ = self._smap_pivot(rows_o, qmins_o, cuts)
+        else:
+            kept = np.empty((len(rows), BLOCK_VALS), np.int64)
+            cnt = np.empty(len(rows), np.int64)
+            for s in range(sa.n_shards):
+                sl = slice(int(cuts[s]), int(cuts[s + 1]))
+                if sl.start == sl.stop:
+                    continue
+                self._check_shard(s)
+                kept[sl], cnt[sl] = self._pivot_dev_on(
+                    rows_o[sl], qmins_o[sl], pcs[s]
+                )
+        gcuts = np.zeros(len(rows) + 1, np.int64)
+        np.cumsum(cnt, out=gcuts[1:])
+        grows = np.empty(int(cnt.sum()), np.int64)
+        for s in range(sa.n_shards):
+            sl = slice(int(cuts[s]), int(cuts[s + 1]))
+            if sl.start == sl.stop:
+                continue
+            k_s = kept[sl]
+            local = (pcs[s].base[rows_o[sl]][:, None] + k_s)[k_s >= 0]
+            grows[gcuts[sl.start] : gcuts[sl.stop]] = sa.rows_of[s][local]
+        return kept, cnt, cur_ij, grows
 
     def _pivot_rows(self, specs, theta) -> list[np.ndarray]:
         """Per query: ALL arena rows (blocks) surviving the device pivot at
@@ -749,16 +866,17 @@ class TopKEngine:
             return out
         return np.where(hit, core.flat_scores[pos], np.float32(0.0))
 
-    def _contrib_dev_on(self, ef: bool, terms, docs) -> np.ndarray:
-        """One codec's wave of device contributions, chunked at MAX_BUCKET:
-        locate -> ``bm25_score_probe`` (SVB blocks) or ``ef_search`` +
-        ``bm25_score_rows`` + lane select (EF blocks).
+    def _contrib_dev_on(self, a, ef: bool, terms, docs) -> np.ndarray:
+        """One codec's wave of device contributions over arena ``a`` (the
+        global one, or a shard's sub-arena) on the engine's device, chunked
+        at MAX_BUCKET: locate -> ``bm25_score_probe`` (SVB blocks) or
+        ``ef_search`` + ``bm25_score_rows`` + lane select (EF blocks).
 
         pow2 padding cursors repeat the wave's first cursor: list 0 at
         docID 0 may locate a block of the other codec, whose ``codec_row``
         does not index this wave's tiles.
         """
-        a, d = self.arena, self._dev
+        d = a.on(self.device)
         cr = d.codec_row if a.multi else None
         n = len(terms)
         out = np.empty(n, np.float32)
@@ -794,27 +912,68 @@ class TopKEngine:
             out[s:e] = res_h[: e - s]
         return out
 
-    def _contrib_dev(self, terms: np.ndarray, docs: np.ndarray) -> np.ndarray:
-        """Device contributions, bucketed per codec: a multi-codec arena
-        runs the host codec pre-pass (the same searchsorted the device
-        re-runs, read only for ``block_codec``) and launches ONE wave per
-        codec, scattering back in batch order."""
-        a = self.arena
+    def _contrib_dev_arena(self, a, terms, docs) -> np.ndarray:
+        """Device contributions over arena ``a``, bucketed per codec: a
+        multi-codec arena runs the host codec pre-pass (the same
+        searchsorted the device re-runs, read only for ``block_codec``) and
+        launches ONE wave per codec, scattering back in batch order."""
+        if a.n_blocks == 0:  # an empty shard: nothing to score, no launch
+            return np.zeros(len(terms), np.float32)
         if a.block_codec is None:
-            return self._contrib_dev_on(False, terms, docs)
+            return self._contrib_dev_on(a, False, terms, docs)
         pc = np.clip(docs, 0, a.stride - 1)
         k = np.searchsorted(a.block_keys, pc + terms * a.stride, side="left")
         codec = a.block_codec[np.minimum(k, a.n_blocks - 1)]
         ef_j = np.nonzero(codec == CODEC_EF)[0]
         if not len(ef_j):
-            return self._contrib_dev_on(False, terms, docs)
+            return self._contrib_dev_on(a, False, terms, docs)
         if len(ef_j) == len(terms):
-            return self._contrib_dev_on(True, terms, docs)
+            return self._contrib_dev_on(a, True, terms, docs)
         svb_j = np.nonzero(codec != CODEC_EF)[0]
         out = np.empty(len(terms), np.float32)
-        out[svb_j] = self._contrib_dev_on(False, terms[svb_j], docs[svb_j])
-        out[ef_j] = self._contrib_dev_on(True, terms[ef_j], docs[ef_j])
+        out[svb_j] = self._contrib_dev_on(a, False, terms[svb_j], docs[svb_j])
+        out[ef_j] = self._contrib_dev_on(a, True, terms[ef_j], docs[ef_j])
         return out
+
+    def _contrib_dev(self, terms: np.ndarray, docs: np.ndarray) -> np.ndarray:
+        """Device path; with ``shards=`` cursors route to their owning
+        shard's sub-arena and merge back by pure scatter (contributions are
+        scalars -- nothing to rebase)."""
+        if self.sharded is None:
+            return self._contrib_dev_arena(self.arena, terms, docs)
+        from ..core.shard import ShardMapBM25, ShardsUnavailable
+
+        sa = self.sharded
+        owner, local, served = sa.route(terms)
+        if not served.all():
+            raise ShardsUnavailable(np.unique(np.asarray(terms)[~served]))
+        order = np.argsort(owner, kind="stable")
+        cuts = np.searchsorted(owner[order], np.arange(sa.n_shards + 1))
+        out = np.zeros(len(terms), np.float32)
+        if sa.mesh is not None:
+            if self._smap_fn is None:
+                self._smap_fn = ShardMapBM25(
+                    sa, k1p1=self.k1p1, max_bucket=self.MAX_BUCKET,
+                    injector=self.fault_injector,
+                )
+            out[order] = self._smap_fn(local[order], docs[order], cuts)
+            return out
+        for s in range(sa.n_shards):
+            idx = order[cuts[s] : cuts[s + 1]]
+            if len(idx) == 0:
+                continue
+            self._check_shard(s)
+            out[idx] = self._contrib_dev_arena(
+                sa.shards[s], local[idx], docs[idx]
+            )
+        return out
+
+    @property
+    def _use_device(self) -> bool:
+        if self.sharded is not None:
+            # routing-metadata-only check: must not force the shard slices
+            return self.backend == "torch" and self.sharded.all_device_ok
+        return self.core.use_device
 
     def contributions(self, terms, docs) -> np.ndarray:
         """f32 BM25 contribution of doc in list(term), 0.0 when absent.
@@ -826,7 +985,7 @@ class TopKEngine:
         docs = np.asarray(docs, dtype=np.int64)
         if len(terms) == 0:
             return np.zeros(0, np.float32)
-        if self.core.use_device:
+        if self._use_device:
             g = group_cursors(terms, docs, self.arena.stride)
             if g is not None:
                 idx, inv = g
@@ -1087,7 +1246,11 @@ class TopKEngine:
             out_u, hit = self._cache_lookup(urows)
             miss = ~hit
             mrows = urows[miss]
-            if self.core.use_device and 0 < len(mrows) <= self.MAX_BUCKET:
+            if (
+                self.sharded is None
+                and self.core.use_device
+                and 0 < len(mrows) <= self.MAX_BUCKET
+            ):
                 mask_b = self._theta_round_dev(
                     specs, sel_a, cap, k, theta, ubs,
                     idx_l, col_l, w_l, out_u, hit, inv, lanes, miss, mrows,

@@ -52,7 +52,9 @@ def test_scanner_flags_what_it_must(tmp_path):
     "repro_torch.launch.serve", "repro_torch.convert",
     "repro_torch.examples.train_recsys", "repro_torch.launch.cells",
     "repro_torch.serving", "repro_torch.obs.server", "repro_torch.obs.export",
-    "repro_torch.configs.optvb_index",
+    "repro_torch.configs.optvb_index", "repro_torch.core.shard",
+    "repro_torch.core.arena_ckpt", "repro_torch.checkpoint",
+    "repro_torch.distributed",
 ])
 def test_import_leaves_no_jax_or_repro_module(module):
     code = (

@@ -1,7 +1,6 @@
 """The port's obs layer against the JAX package's.
 
-The reference's own tests (``tests/test_obs.py``, those that need no
-sharding, resilience or checkpoint module) run here against
+The reference's own tests (``tests/test_obs.py``) run here against
 ``repro_torch.obs``: metrics primitives, the disarmed no-op contract,
 span tracing into the ring, the exporters and a live HTTP server, and the
 port's ``TopKEngine`` bit-identical with the layer on and off.  Then
@@ -9,7 +8,9 @@ parity: the same seeded observations (10,000 of them, past ``RAW_CAP``)
 into both packages' registries give identical percentiles, summaries,
 buckets, Prometheus text (byte for byte) and JSON snapshots.  Last,
 ``profile`` over ``torch.profiler``: a Chrome trace when armed, an error
-that propagates.
+that propagates.  And one snapshot after a sharded, fault-injected engine
+and a checkpoint round trip, held to the reference's for the same
+scenario.
 """
 
 import json
@@ -415,3 +416,72 @@ def test_topk_bit_identical_with_obs_on(ranked_index, backend, resident):
     # the ranked phases surfaced as spans, in the histograms and the ring
     assert any('span="seed"' in k for k in snap["histograms"])
     assert {"seed", "rescore"} <= {e["name"] for e in obs.events()}
+
+
+def test_snapshot_covers_every_instrumented_subsystem(tmp_path):
+    """One snapshot after touching engine, shards, resilience and
+    checkpointing carries metrics from all four subsystems -- and the same
+    scenario through the reference gives the same counters, value for
+    value, and the same histograms (up to the backend label)."""
+    from repro.core.index import build_partitioned_index as ref_build
+    from repro.data.postings import make_corpus, make_freqs, make_queries
+
+    from repro_torch.convert import index_arrays, index_from_arrays
+
+    rng = np.random.default_rng(42)
+    corpus = make_corpus(rng, n_lists=6, min_len=300, max_len=2_000,
+                         mean_dense_gap=2.13, frac_dense=0.8)
+    ref_idx = ref_build(corpus, "optimal", freqs=make_freqs(rng, corpus))
+    queries = [[int(t) for t in q] for q in make_queries(rng, 6, 12, 2)]
+
+    def scenario(o, idx, QueryEngine, ResilientEngine, ShardFaultInjector,
+                 CheckpointManager, path, **kw):
+        o.enable(True)
+        o.reset()
+        # the routed engine: the numpy backend would serve sharded
+        # queries through the global flat mirror, never a shard dispatch
+        res = ResilientEngine(
+            QueryEngine(idx, shards=2, replicas=2, shard_mesh=None, **kw),
+            injector=ShardFaultInjector(at_batches=(1,), shards=(0,)),
+            backoff_s=1e-4,
+        )
+        for i in range(0, len(queries), 4):
+            res.intersect_batch(queries[i : i + 4])
+        r = np.random.default_rng(3)
+        res.search_batch(r.integers(0, 6, 40), r.integers(0, 1_000_000, 40))
+        m = CheckpointManager(path, async_save=False)
+        # non-monotone payload: stays raw (saved bytes = the raw 800)
+        tree = {"a": np.random.default_rng(5).standard_normal(100)}
+        m.save(0, tree)
+        m.restore(tree)
+        return o.snapshot(events=False)
+
+    from repro.checkpoint import CheckpointManager as RefManager
+    from repro.core.query_engine import QueryEngine as RefQuery
+    from repro.distributed.resilient import ResilientEngine as RefResilient
+    from repro.distributed.resilient import ShardFaultInjector as RefInjector
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.query_engine import QueryEngine
+    from repro_torch.distributed.resilient import (
+        ResilientEngine,
+        ShardFaultInjector,
+    )
+
+    want = scenario(ref_obs, ref_idx, RefQuery, RefResilient, RefInjector,
+                    RefManager, tmp_path / "ref", backend="ref")
+    snap = scenario(obs, index_from_arrays(index_arrays(ref_idx)),
+                    QueryEngine, ResilientEngine, ShardFaultInjector,
+                    CheckpointManager, tmp_path / "port", device="cpu")
+    c, h = snap["counters"], snap["histograms"]
+    assert any(k.startswith("engine_") for k in c)            # EngineCore
+    assert any(k.startswith("shard_dispatch") for k in c)     # ShardedArena
+    assert any(k.startswith("resilient_") for k in c)         # ResilientEngine
+    assert c["checkpoint_saves"] == 1 and c["checkpoint_restores"] == 1
+    assert c["checkpoint_saved_bytes"] == c["checkpoint_restored_bytes"] == 800
+    assert h["checkpoint_save_ms"]["count"] == 1
+    assert h["checkpoint_restore_ms"]["count"] == 1
+    assert c == want["counters"]
+    assert sorted(k.replace('backend="torch"', 'backend="ref"') for k in h) \
+        == sorted(want["histograms"])
+    assert snap["gauges"].keys() == want["gauges"].keys()

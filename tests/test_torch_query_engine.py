@@ -234,8 +234,17 @@ def test_config_facade():
     assert eng.backend == "torch" and str(eng.device) == "cpu"
     assert eng.arena is idx.arena_for("ef")
     assert EngineConfig.from_json(eng.config.to_json()) == eng.config
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        QueryEngine(idx, device="cpu", shards=2)
+    # sharding through the same facade: a 2-shard engine answers as the
+    # unsharded one
+    sharded = make_query_engine(idx, EngineConfig(device="cpu",
+                                                  codec_policy="ef", shards=2))
+    assert sharded.sharded is not None and sharded.sharded.n_shards == 2
+    rng = np.random.default_rng(3)
+    terms = rng.integers(0, len(lists), 64)
+    probes = rng.integers(0, int(max(l[-1] for l in lists)) + 10, 64)
+    for g, w in zip(sharded.search_batch(terms, probes),
+                    eng.search_batch(terms, probes)):
+        assert np.array_equal(g, w)
     with pytest.raises(TypeError, match="EngineConfig"):
         QueryEngine(idx, device="cpu", resident_typo=1)
     with pytest.raises(ValueError, match="backend"):

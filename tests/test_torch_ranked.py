@@ -335,8 +335,14 @@ def test_engine_options():
     assert TopKEngine(tidx, backend="numpy").resident == "mirror"
     with pytest.raises(ValueError, match="resident"):
         TopKEngine(tidx, device="cpu", resident="disk")
-    with pytest.raises(NotImplementedError, match="shard"):
-        TopKEngine(tidx, device="cpu", shards=2)
+    # sharding through the same facade: a 2-shard engine answers as the
+    # unsharded one
+    qs = _queries(12, seed=9)
+    sharded = TopKEngine(tidx, device="cpu", shards=2, resident="kernel")
+    assert sharded.sharded is not None and sharded.sharded.n_shards == 2
+    for (gd, gs), (wd, ws) in zip(sharded.topk_batch(qs, 10),
+                                  eng.topk_batch(qs, 10)):
+        assert np.array_equal(gd, wd) and np.array_equal(gs, ws)
     with pytest.raises(TypeError, match="unexpected"):
         TopKEngine(tidx, device="cpu", warp_size=32)
     if not torch.cuda.is_available():

@@ -168,3 +168,71 @@ def test_serve_boolean_metrics_port_and_dump(tmp_path, obs_restored, capsys):
     assert "[serve] metrics: http://127.0.0.1:" in out
     snap = json.loads(path.read_text())
     assert snap["histograms"]['serve_batch_ms{path="boolean_and"}']["count"] == 3
+
+
+# ----------------------------------------------------------------------
+# sharded and fault-injected serving
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("ranked", [False, True], ids=["boolean", "ranked"])
+def test_serve_sharded_compare_scalar(ranked, capsys):
+    """--shards 4 serves through the host shard loop on the CPU and
+    --compare-scalar still holds every answer to the oracle (ranked: the
+    kernel residency, whose pivot rounds route per shard)."""
+    base = RANKED + ["--resident", "kernel"] if ranked else TINY
+    got = serve.run(serve.parse_args(base + ["--device", "cpu", "--shards",
+                                             "4", "--compare-scalar"]))
+    out = capsys.readouterr().out
+    assert "[serve] shards: 4 (host loop (too few devices for a mesh))" in out
+    assert ("identical top-k" if ranked else "results identical") in out
+    eng = got["engine"]
+    assert eng.sharded is not None and eng.sharded.n_shards == 4
+    assert got["faults"] is None and got["arena_device_bytes"] is None
+    assert len(got["shard_device_bytes"]) == 4
+    assert sum(got["shard_device_bytes"]) > 0
+
+
+@pytest.mark.parametrize("ranked", [False, True], ids=["boolean", "ranked"])
+def test_serve_replica_failover(ranked, capsys):
+    base = RANKED + ["--resident", "kernel"] if ranked else TINY
+    got = serve.run(serve.parse_args(
+        base + ["--device", "cpu", "--shards", "4", "--replicas", "2",
+                "--faults", "1"]))
+    out = capsys.readouterr().out
+    assert "[serve] faults: availability 1.0000" in out
+    assert "failovers 1," in out
+    assert "DEAD" in out.split("[serve] shard health:")[1].splitlines()[0]
+    assert got["faults"]["failovers"] == 1
+    assert got["faults"]["availability"] == 1.0
+
+
+def test_serve_checkpoint_recovery(capsys):
+    got = serve.run(serve.parse_args(
+        TINY + ["--device", "cpu", "--shards", "4", "--faults", "1",
+                "--recover"]))
+    out = capsys.readouterr().out
+    assert "recoveries 1 (p99 " in out and "(p99 n/a)" not in out
+    assert "[serve] shard health: ['HEALTHY', 'HEALTHY', 'HEALTHY', " \
+           "'HEALTHY']" in out
+    assert "[serve] arena checkpoint: " in out
+    f = got["faults"]
+    assert f["recoveries"] == 1 and f["availability"] == 1.0
+    assert f["checkpoint_bytes"] > 0 and len(f["restore_s"]) == 1
+    # the checkpoint tempdir goes when serving ends
+    assert not got["resilient"].manager.dir.exists()
+    # recovered answers are the no-fault answers
+    idx = got["index"]
+    for q, r in zip(got["queries"], got["results"]):
+        assert np.array_equal(r, idx.intersect_scalar(q)), q
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["--shards", "2", "--no-fused"], "--shards requires the fused engine"),
+    (["--faults", "1"], "--faults/--fault-prob require --shards"),
+    (["--ranked", "--loop", "--shards", "2", "--faults", "1"],
+     "--loop and fault injection are separate lanes"),
+], ids=["shards-no-fused", "faults-no-shards", "loop-faults"])
+def test_serve_sharding_refusals(argv, msg, capsys):
+    with pytest.raises(SystemExit) as e:
+        serve.parse_args(TINY + ["--device", "cpu"] + argv)
+    assert e.value.code == 2
+    assert msg in capsys.readouterr().err
