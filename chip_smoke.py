@@ -8,7 +8,11 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
 
 1. card      -- ``nvidia-smi`` name and power limit;
 2. build     -- compile every CUDA source of ``src/repro_torch/csrc`` with
-   ``nvcc`` (one process each, all started together);
+   ``nvcc`` (one process each, all started together), then
+   ``repro_torch.analyze.kernel_check``'s PTX rule: the PTX of the three
+   libraries that evaluate an f32 contract (BM25's; the bag's k-ordered
+   sum) must hold no contracted multiply-add (``fma.rn.f32``) and no
+   approximate division (``div.approx`` / ``div.full.f32``);
 3. recsys train -- ``repro_torch.examples.train_recsys.run`` at the full
    DCN-v2 width (13 dense and 26 sparse fields, a 27,262,976 x 16 table,
    3 cross layers, MLP 1024-1024-512), initialised on the card from seed
@@ -89,6 +93,19 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    availability, failures, failovers, recoveries, recovery p99, each
    shard's device bytes); the phase prints its seconds against its
    budget of 180 s;
+6d. analyze -- ``repro_torch.analyze`` on the card: the contract registry,
+   the idiom lint and the kernel sources (any finding fails; phase 2's
+   PTX result printed again), and the host-sync audit of the tiny
+   workload under ``torch.cuda.set_sync_debug_mode("warn")``, held to the
+   committed ``sync_baseline.json`` (each path's sync sites and hidden
+   syncs printed, and the audit's launches); then, for each of phase 4's
+   and phase 6's full-size indexes, a fresh engine of the same config
+   serves a warm batch of 64 queries over half the lists, then a
+   data-cold batch of 64 over the other half under the card's sync debug
+   mode: sync events, sites and (site, kind) pairs a batch (one ``analyze
+   full size:`` JSON line); a pair not in ``FULL_SYNC_SITES`` fails, and
+   the answers must equal the same batch's served again without the
+   debug mode.  The phase prints its seconds against its budget of 60 s;
 7. kernels  -- each kernel against its plain PyTorch version on the card,
    at the main paths' shapes, over the arenas and corpus they built
    (integer contracts and the f32 BM25 contract: zero mismatches allowed),
@@ -107,12 +124,8 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    queued behind a spin kernel), and ``pivot_select`` and ``embedding_bag``
    their wrappers' host time and edge launches (``pivot_edge_cases``,
    ``bag_edge_cases``);
-8. the ``kernels`` JSON line, then the result line.
-
-Phase 2 also reads the PTX of the three libraries that evaluate an f32
-contract (BM25's; the bag's k-ordered sum) and fails on a contracted
-multiply-add (``fma.rn.f32``) or an approximate division (``div.approx`` /
-``div.full.f32``).
+8. the ``kernels`` JSON line (each row also counts its launches in
+   phases 6b, 6c and 6d), then the result line.
 
 Exits non-zero, before the result line, if any phase fails, if there is no
 CUDA card, or if the port's sources are not beside this script.
@@ -170,11 +183,26 @@ SHARD_QUERIES = 256
 SHARD_PHASE_S = 180.0
 LIBS = ["vbyte_decode", "ef_search", "bm25_score", "blockmax_pivot",
         "pivot_score", "gain_scan", "partition_scan", "embedding_bag"]
-# the libraries that evaluate an f32 contract (BM25's, the bag's k-ordered
-# sum), and what their PTX must not hold: a contracted multiply-add or an
-# approximate division
-F32_LIBS = ["bm25_score", "pivot_score", "embedding_bag"]
-PTX_FORBIDDEN = ["fma.rn.f32", "div.approx", "div.full.f32"]
+# phase 6d, the analyser: its seconds are held to this budget (printed,
+# not a gate; a fresh ranked engine's warm batch builds its host flat
+# mirror, about 22 s of it); the seed of its full-size batches; and each
+# path's sync sites, with the torch function that syncs, that a
+# data-cold full-size batch may reach (a new one fails the phase)
+ANALYZE_PHASE_S = 60.0
+ANALYZE_SEED = 20
+FULL_SYNC_SITES = {
+    "boolean_and": [
+        "src/repro_torch/core/engine_core.py::_dispatch [cpu]",
+        "src/repro_torch/core/engine_core.py::_dispatch [to]",
+        "src/repro_torch/core/engine_core.py::decode_rows_values [cpu]",
+        "src/repro_torch/core/engine_core.py::decode_rows_values [to]",
+    ],
+    "ranked_topk": [
+        "src/repro_torch/ranked/topk_engine.py::_fetch [cpu]",
+        "src/repro_torch/ranked/topk_engine.py::_theta_round_dev [tensor]",
+        "src/repro_torch/ranked/topk_engine.py::_up [to]",
+    ],
+}
 EF_BATCHES = 3  # batches served through the ef arena of the same index
 CHECK_QUERIES = 64  # batched answers checked against the scalar loop
 SEARCH_CURSORS = 1 << 20  # decode_search cursors held to the plain version
@@ -769,19 +797,6 @@ def check_kernels(torch, res, ef_engine, launches, card, profile):
     return rows_out
 
 
-def check_ptx(build) -> None:
-    """Phase 2: the f32 contracts survive compilation -- no FMA
-    contraction, no approximate division in the PTX of their libraries."""
-    for name in F32_LIBS:
-        text = build.ptx(name)
-        found = [w for w in PTX_FORBIDDEN if w in text]
-        if found:
-            fail(f"PTX of csrc/{name}.cu holds {found}: the f32 contract "
-                 "would drift off the reference")
-        print(f"[chip_smoke] PTX of {name}: no {' / '.join(PTX_FORBIDDEN)}; "
-              f"{text.count('div.rn.f32')} div.rn.f32", flush=True)
-
-
 def contrib_pairs(rng, engine, n: int):
     """(terms, docs): n/2 members drawn from the real lanes of the arena,
     the rest random docIDs of random lists, a few of them -1 or past the
@@ -1294,6 +1309,125 @@ def run_shard_path(res, rres, torch, serve, counters, card):
           f"{'within' if dt <= SHARD_PHASE_S else 'OVER'} the phase's "
           f"{SHARD_PHASE_S:.0f}s budget [{card}]", flush=True)
     return totals
+
+
+def check_ptx() -> dict:
+    """Phase 2: the f32 contracts survive compilation -- no FMA
+    contraction, no approximate division in the PTX of their libraries
+    (``kernel_check``'s PTX rule).  Returns each library's count of
+    correctly rounded divisions, which phase 6d prints again."""
+    from repro_torch.analyze import kernel_check, render
+
+    findings, divs = kernel_check.check_ptx()
+    if findings:
+        fail(f"PTX: {len(findings)} finding(s)\n{render(findings)}")
+    print(f"[chip_smoke] PTX of {', '.join(divs)}: no "
+          f"{' / '.join(kernel_check.PTX_FORBIDDEN)}; div.rn.f32 "
+          f"{json.dumps(divs)}", flush=True)
+    return divs
+
+
+def sync_batches(engine):
+    """(warm, audited): a batch of BATCH queries each over two disjoint
+    halves of the index's lists, drawn from ANALYZE_SEED.  A fresh engine
+    that served the warm batch has done its set-up, and none of the
+    audited batch's rows sit in its caches: the audited batch is
+    data-cold, as the tiny workload's is."""
+    from repro_torch.data.postings import make_queries
+
+    rng = np.random.default_rng(ANALYZE_SEED)
+    lists = rng.permutation(len(engine.index.list_sizes))
+    half = len(lists) // 2
+    return [[[int(part[t]) for t in q] for q in make_queries(rng, len(part),
+                                                             BATCH)]
+            for part in (lists[:half], lists[half:])]
+
+
+def run_analyze_path(res, rres, torch, counters, card, ptx_divs):
+    """Phase 6d: ``repro_torch.analyze`` on the card -- the contract
+    registry, the idiom lint, the kernel sources, the host-sync audit of
+    the tiny workload against the committed baseline -- then the card's
+    sync count of one data-cold batch through fresh engines over phase 4's
+    and phase 6's full-size indexes, held to FULL_SYNC_SITES.  Returns
+    the phase's launches."""
+    from repro_torch.analyze import (
+        contracts, idiom_lint, kernel_check, render, sync_audit)
+
+    t_phase = time.perf_counter()
+    for c in counters.values():
+        c.launches = 0
+    findings = (contracts.check_contracts() + idiom_lint.lint_repo()
+                + kernel_check.check_kernels())
+    print(f"[chip_smoke] PTX of {', '.join(ptx_divs)}: checked in phase 2; "
+          f"div.rn.f32 {json.dumps(ptx_divs)}", flush=True)
+    measured = sync_audit.audit_hot_paths(DEVICE)
+    audit_launches = {n: c.launches for n, c in counters.items()
+                      if c.launches}
+    findings += sync_audit.compare_baseline(measured,
+                                            sync_audit.load_baseline())
+    for name, m in measured["hot_paths"].items():
+        print(f"[chip_smoke] analyze audit {name}: syncs {m['syncs']} "
+              f"{m['sync_sites']}, hidden_syncs {m['hidden_syncs']} "
+              f"{m['hidden_sites']}", flush=True)
+    for hint in sync_audit.improvements(measured, sync_audit.load_baseline()):
+        print(f"[chip_smoke] analyze NOTE {hint}", flush=True)
+    print(f"[chip_smoke] analyze audit launches: {json.dumps(audit_launches)}",
+          flush=True)
+    if findings:
+        fail(f"analyze: {len(findings)} finding(s)\n{render(findings)}")
+
+    # full size: a fresh engine over each full-size index serves a warm
+    # batch, then a data-cold one under the card's sync debug mode; the
+    # answers must not change under it (the same batch again, without it)
+    full, new_sites = {}, []
+    for name, eng, serve_batch in (
+        ("boolean_and", res["engine"], lambda e, b: e.intersect_batch(b)),
+        ("ranked_topk", rres["engine"], lambda e, b: e.topk_batch(b, TOPK)),
+    ):
+        fresh = type(eng)(eng.index, config=eng.config)
+        warm, cold = sync_batches(fresh)
+        serve_batch(fresh, warm)
+        sites = set()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sync_audit.trap_card_syncs(sites) as counts:
+            got = serve_batch(fresh, cold)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = serve_batch(fresh, cold)
+        same = all(
+            np.array_equal(g, w) if name == "boolean_and"
+            else np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1])
+            for g, w in zip(got, want))
+        if not same or len(got) != BATCH or len(want) != BATCH:
+            fail(f"analyze full size: {name}'s answers changed under the "
+                 "sync debug mode")
+        if counts["events"] == 0:
+            fail(f"analyze full size: the card saw no sync in a {name} batch "
+                 "(its fetch alone syncs): the instrument is broken")
+        names = sync_audit.site_names(sites)
+        new_sites += [f"{name}: {n}" for n in names
+                      if n not in FULL_SYNC_SITES[name]]
+        for n in FULL_SYNC_SITES[name]:
+            if n not in names:
+                print(f"[chip_smoke] analyze NOTE {name}: {n} no longer "
+                      "syncs at full size -- drop it from FULL_SYNC_SITES",
+                      flush=True)
+        full[name] = {"queries": len(got), "sync_events": counts["events"],
+                      "sync_sites": len({n.split(" [")[0] for n in names}),
+                      "sync_kinds": len(names), "sites": names,
+                      "batch_ms": ms}
+    print(f"[chip_smoke] analyze full size: {json.dumps(full)} [{card}]",
+          flush=True)
+    if new_sites:
+        fail("analyze full size: sync sites not in FULL_SYNC_SITES:\n  "
+             + "\n  ".join(new_sites))
+    launches = {n: c.launches for n, c in counters.items()}
+    dt = time.perf_counter() - t_phase
+    print(f"[chip_smoke] analyze: passed in {dt:.1f}s, "
+          f"{'within' if dt <= ANALYZE_PHASE_S else 'OVER'} the phase's "
+          f"{ANALYZE_PHASE_S:.0f}s budget [{card}]", flush=True)
+    return launches
 
 
 def pivot_edge_cases(torch) -> int:
@@ -2090,7 +2224,7 @@ def main(argv=None) -> int:
                 print(f"[chip_smoke] ptxas {name}: {line.strip()}")
     print(f"[chip_smoke] kernels built in {time.perf_counter()-t0:.1f}s",
           flush=True)
-    check_ptx(_build)
+    ptx_divs = check_ptx()
 
     # 3. the recsys trainer at full width, counted; embedding_bag's check
     # runs while the path's tensors are alive, then they are freed
@@ -2158,6 +2292,10 @@ def main(argv=None) -> int:
     shard_launches = run_shard_path(res, rres, torch, serve, all_counters,
                                     card)
 
+    # 6d. the analyser on the card, and the full-size sync count
+    analyze_launches = run_analyze_path(res, rres, torch, all_counters, card,
+                                        ptx_divs)
+
     # 7. each kernel against its plain version
     kernels = check_kernels(torch, res, ef_engine, launches, card,
                             bool_profile)
@@ -2168,6 +2306,7 @@ def main(argv=None) -> int:
     for row in kernels:
         row["loop_launches"] = loop_launches.get(row["name"], 0)
         row["shard_launches"] = shard_launches.get(row["name"], 0)
+        row["analyze_launches"] = analyze_launches.get(row["name"], 0)
     if len(kernels) != N_KERNELS:
         fail(f"the kernels line has {len(kernels)} rows, not {N_KERNELS}")
     print(f"[chip_smoke] all phases passed in "

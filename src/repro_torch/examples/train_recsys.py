@@ -14,11 +14,11 @@ bag into the dense features and takes one ``make_train_step`` step.
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..api import resolve_device
 from ..configs import get_arch
 from ..convert import recsys_params_from_arrays
@@ -58,13 +58,13 @@ def train_step(state: dict, s: int, batch: int) -> dict:
     and of the multi-hot decode, the seconds of the rest (upload, bag,
     train step, the card synchronized), and the tensors it trained on."""
     cfg, dev = state["cfg"], state["device"]
-    t0 = time.perf_counter()
+    t0 = obs.now()
     b = make_ctr_batch(np.random.default_rng(s), cfg, batch)
-    t1 = time.perf_counter()
+    t1 = obs.now()
     users = np.random.default_rng(s).integers(0, N_USERS, batch)
     ids, mask = decode_multihot_batch(state["store"], users, pad_to=PAD_TO,
                                       device=dev)
-    t2 = time.perf_counter()
+    t2 = obs.now()
     ids, mask = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
     # the reference pads the table to 128 columns for the TPU's lanes and
     # slices the bag back; the kernel takes the [rows_per_field, d] rows
@@ -82,7 +82,7 @@ def train_step(state: dict, s: int, batch: int) -> dict:
     loss = float(m["loss"])
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    t3 = time.perf_counter()
+    t3 = obs.now()
     return {"loss": loss, "batch_s": t1 - t0, "decode_s": t2 - t1,
             "step_s": t3 - t2, "batch": tb, "ids": ids, "mask": mask,
             "bag": bag}

@@ -21,6 +21,45 @@ from .kernel import QMIN_NONE
 _I32_MAX = 2**31 - 1
 
 
+# The family's identity and the signatures of its numpy / plain / CUDA
+# triple, checked without importing anything by
+# ``repro_torch.analyze.contracts``.  Outputs are the CUDA wrapper's (the
+# numpy mirror widens them to int64).
+CONTRACT = {
+    "family": "blockmax_pivot",
+    "identity": "integer",
+    "ops": {
+        "pivot_select": {
+            "roles": ["qb", "qmin", "nblk"],
+            "out": [
+                "compact:int32[nr,128]",
+                "count:int32[nr]",
+                "pivot:int32[nr]",
+                "maxq:int32[nr]",
+            ],
+            "backends": {
+                "numpy": {
+                    "module": "ops",
+                    "fn": "pivot_select_np",
+                    "params": ["qb:qb", "qmins:qmin", "nblks:nblk"],
+                },
+                "ref": {
+                    "module": "ref",
+                    "fn": "pivot_select_ref",
+                    "params": ["qb:qb", "nblk:nblk", "qmin:qmin", "rows:gather"],
+                },
+                "cuda": {
+                    "module": "kernel",
+                    "fn": "pivot_select",
+                    "source": "csrc/blockmax_pivot.cu",
+                    "params": ["qb:qb", "nblk:nblk", "qmin:qmin", "rows:gather"],
+                },
+            },
+        },
+    },
+}
+
+
 def _qmin_2d(qmins, n: int) -> np.ndarray:
     """Accept per-row scalars or per-lane tiles; always return [n, 128]."""
     q = np.asarray(qmins, np.int64)

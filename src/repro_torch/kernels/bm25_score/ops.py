@@ -16,6 +16,140 @@ import numpy as np
 from ..vbyte_decode.ops import decode_blocks_np
 
 
+# The family's identity and the signatures of its numpy / plain / CUDA
+# triple, checked without importing anything by
+# ``repro_torch.analyze.contracts``.  The numpy mirrors take rows already
+# gathered (``norms``, ``idf_rows``); the plain versions and the wrappers
+# take the resident arena and gather through ``rows`` / ``lob`` /
+# ``codec_row`` (the ``gather`` role, local to a backend).
+CONTRACT = {
+    "family": "bm25_score",
+    "identity": "f32-bit-exact",
+    "ops": {
+        "score_rows": {
+            "roles": ["flens", "fdata", "norms", "idf", "table", "k1p1"],
+            "out": ["scores:float32[nr,128]"],
+            "backends": {
+                "numpy": {
+                    "module": "ops",
+                    "fn": "score_rows_np",
+                    "params": [
+                        "flens:flens",
+                        "fdata:fdata",
+                        "norms:norms",
+                        "idf_rows:idf",
+                        "table:table",
+                        "k1p1:k1p1",
+                    ],
+                },
+                "ref": {
+                    "module": "ref",
+                    "fn": "score_rows_ref",
+                    "params": [
+                        "flens:flens",
+                        "fdata:fdata",
+                        "norm_q:norms",
+                        "idf:idf",
+                        "lob:gather",
+                        "table:table",
+                        "k1p1:k1p1",
+                        "rows:gather",
+                    ],
+                },
+                "cuda": {
+                    "module": "kernel",
+                    "fn": "bm25_score_rows",
+                    "source": "csrc/bm25_score.cu",
+                    "params": [
+                        "flens:flens",
+                        "fdata:fdata",
+                        "norm_q:norms",
+                        "idf:idf",
+                        "lob:gather",
+                        "table:table",
+                        "k1p1:k1p1",
+                        "rows:gather",
+                    ],
+                },
+            },
+        },
+        "score_probe": {
+            "roles": [
+                "lens",
+                "data",
+                "flens",
+                "fdata",
+                "norms",
+                "base",
+                "probe",
+                "idf",
+                "table",
+                "k1p1",
+            ],
+            "out": ["contrib:float32[nr]"],
+            "backends": {
+                "numpy": {
+                    "module": "ops",
+                    "fn": "score_probe_np",
+                    "params": [
+                        "lens:lens",
+                        "data:data",
+                        "flens:flens",
+                        "fdata:fdata",
+                        "norms:norms",
+                        "block_base:base",
+                        "rows:gather",
+                        "probes:probe",
+                        "idf_rows:idf",
+                        "table:table",
+                        "k1p1:k1p1",
+                    ],
+                },
+                "ref": {
+                    "module": "ref",
+                    "fn": "score_probe_ref",
+                    "params": [
+                        "lens:lens",
+                        "data:data",
+                        "block_base:base",
+                        "codec_row:gather",
+                        "flens:flens",
+                        "fdata:fdata",
+                        "norm_q:norms",
+                        "idf:idf",
+                        "lob:gather",
+                        "table:table",
+                        "k1p1:k1p1",
+                        "rows:gather",
+                        "pe:probe",
+                    ],
+                },
+                "cuda": {
+                    "module": "kernel",
+                    "fn": "bm25_score_probe",
+                    "source": "csrc/bm25_score.cu",
+                    "params": [
+                        "lens:lens",
+                        "data:data",
+                        "block_base:base",
+                        "codec_row:gather",
+                        "flens:flens",
+                        "fdata:fdata",
+                        "norm_q:norms",
+                        "idf:idf",
+                        "lob:gather",
+                        "table:table",
+                        "k1p1:k1p1",
+                        "rows:gather",
+                        "pe:probe",
+                    ],
+                },
+            },
+        },
+    },
+}
+
+
 def score_rows_np(flens, fdata, norms, idf_rows, table, k1p1):
     """Numpy mirror of the row scorer: [nr, 128] float32 scores of
     gathered freq rows."""

@@ -25,6 +25,63 @@ from .kernel import EF_HI_WORDS, ef_search as ef_search_dev
 EF_BLOCK_UNIVERSE_MAX = 1 << 23
 
 
+# The family's identity and the signatures of its numpy / plain / CUDA
+# triple, checked without importing anything by
+# ``repro_torch.analyze.contracts``.  Outputs are the CUDA wrapper's (the
+# numpy mirror widens them to int64).
+CONTRACT = {
+    "family": "ef_search",
+    "identity": "integer",
+    "ops": {
+        "ef_search": {
+            "roles": ["lo", "hi", "lbits", "base", "probe"],
+            "out": ["value:int32[nr]", "rank:int32[nr]"],
+            "backends": {
+                "numpy": {
+                    "module": "ops",
+                    "fn": "ef_search_np",
+                    "params": [
+                        "lo:lo",
+                        "hi:hi",
+                        "lbits:lbits",
+                        "block_base:base",
+                        "rows:gather",
+                        "probes:probe",
+                    ],
+                },
+                "ref": {
+                    "module": "ref",
+                    "fn": "ef_search_ref",
+                    "params": [
+                        "lo:lo",
+                        "hi:hi",
+                        "lbits:lbits",
+                        "block_base:base",
+                        "rows:gather",
+                        "pe:probe",
+                        "codec_row:gather",
+                    ],
+                },
+                "cuda": {
+                    "module": "kernel",
+                    "fn": "ef_search",
+                    "source": "csrc/ef_search.cu",
+                    "params": [
+                        "lo:lo",
+                        "hi:hi",
+                        "lbits:lbits",
+                        "block_base:base",
+                        "rows:gather",
+                        "pe:probe",
+                        "codec_row:gather",
+                    ],
+                },
+            },
+        },
+    },
+}
+
+
 def ef_block_eligible(vals: np.ndarray, bases: np.ndarray) -> np.ndarray:
     """[n] bool: can each row of block values become an EF tile?
 

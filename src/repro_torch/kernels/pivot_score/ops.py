@@ -17,6 +17,96 @@ from ..vbyte_decode.kernel import BLOCK_VALS
 from .kernel import SCORE_SLOTS
 
 
+# The family's identity and the signatures of its numpy / plain / CUDA
+# triple, checked without importing anything by
+# ``repro_torch.analyze.contracts``.  The numpy mirror takes chunk rows and
+# per-block rows already gathered; the plain version and the wrapper take
+# the resident chunk table and arena and gather through ``rows`` / ``lob``.
+CONTRACT = {
+    "family": "pivot_score",
+    "identity": "f32-bit-exact",
+    "ops": {
+        "pivot_score": {
+            "roles": [
+                "qb",
+                "qmin",
+                "nblk",
+                "base",
+                "flens",
+                "fdata",
+                "norms",
+                "idf",
+                "table",
+                "k1p1",
+            ],
+            "out": [
+                "compact:int32[nr,128]",
+                "count:int32[nr]",
+                "pivot:int32[nr]",
+                "maxq:int32[nr]",
+                "sscores:float32[nr,slots,128]",
+            ],
+            "backends": {
+                "numpy": {
+                    "module": "ops",
+                    "fn": "pivot_score_np",
+                    "params": [
+                        "qb:qb",
+                        "qmins:qmin",
+                        "nblks:nblk",
+                        "bases:base",
+                        "flens:flens",
+                        "fdata:fdata",
+                        "norms:norms",
+                        "idf_rows:idf",
+                        "table:table",
+                        "k1p1:k1p1",
+                        "slots:config",
+                    ],
+                },
+                "ref": {
+                    "module": "ref",
+                    "fn": "pivot_score_ref",
+                    "params": [
+                        "qb:qb",
+                        "nblk:nblk",
+                        "base:base",
+                        "qmin:qmin",
+                        "rows:gather",
+                        "flens:flens",
+                        "fdata:fdata",
+                        "norm_q:norms",
+                        "idf:idf",
+                        "lob:gather",
+                        "table:table",
+                        "k1p1:k1p1",
+                    ],
+                },
+                "cuda": {
+                    "module": "kernel",
+                    "fn": "pivot_score",
+                    "source": "csrc/pivot_score.cu",
+                    "params": [
+                        "qb:qb",
+                        "nblk:nblk",
+                        "base:base",
+                        "qmin:qmin",
+                        "rows:gather",
+                        "flens:flens",
+                        "fdata:fdata",
+                        "norm_q:norms",
+                        "idf:idf",
+                        "lob:gather",
+                        "table:table",
+                        "k1p1:k1p1",
+                    ],
+                },
+            },
+        },
+    },
+}
+
+
 def pivot_score_np(
     qb, qmins, nblks, bases, flens, fdata, norms, idf_rows, table, k1p1,
     slots=SCORE_SLOTS,

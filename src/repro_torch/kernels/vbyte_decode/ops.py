@@ -18,6 +18,82 @@ from .kernel import decode_search as decode_search_dev
 BACKENDS = ("numpy", "torch")
 
 
+# The family's identity and the signatures of its numpy / plain / CUDA
+# triple, checked without importing anything by
+# ``repro_torch.analyze.contracts``.  Outputs are the CUDA wrappers'
+# (the numpy mirrors widen them to int64).
+CONTRACT = {
+    "family": "vbyte_decode",
+    "identity": "integer",
+    "ops": {
+        "decode": {
+            "roles": ["lens", "data"],
+            "out": ["vals:int32[nr,128]"],
+            "backends": {
+                "numpy": {
+                    "module": "ops",
+                    "fn": "decode_blocks_np",
+                    "params": ["lens:lens", "data:data"],
+                },
+                "ref": {
+                    "module": "ref",
+                    "fn": "decode_blocks_ref",
+                    "params": ["lens:lens", "data:data", "rows:gather"],
+                },
+                "cuda": {
+                    "module": "kernel",
+                    "fn": "decode_blocks",
+                    "source": "csrc/vbyte_decode.cu",
+                    "params": ["lens:lens", "data:data", "rows:gather"],
+                },
+            },
+        },
+        "decode_search": {
+            "roles": ["lens", "data", "base", "probe"],
+            "out": ["value:int32[nr]", "rank:int32[nr]"],
+            "backends": {
+                "numpy": {
+                    "module": "ops",
+                    "fn": "decode_search_np",
+                    "params": [
+                        "lens:lens",
+                        "data:data",
+                        "block_base:base",
+                        "rows:gather",
+                        "probes:probe",
+                    ],
+                },
+                "ref": {
+                    "module": "ref",
+                    "fn": "decode_search_ref",
+                    "params": [
+                        "lens:lens",
+                        "data:data",
+                        "block_base:base",
+                        "rows:gather",
+                        "pe:probe",
+                        "codec_row:gather",
+                    ],
+                },
+                "cuda": {
+                    "module": "kernel",
+                    "fn": "decode_search",
+                    "source": "csrc/vbyte_decode.cu",
+                    "params": [
+                        "lens:lens",
+                        "data:data",
+                        "block_base:base",
+                        "rows:gather",
+                        "pe:probe",
+                        "codec_row:gather",
+                    ],
+                },
+            },
+        },
+    },
+}
+
+
 def pack_blocks(values: np.ndarray) -> tuple[np.ndarray, np.ndarray, int]:
     """Encode uint32 values into the kernels' block layout.
 

@@ -76,7 +76,8 @@ class AsyncTopKServer:
 
     Parameters mirror the ``launch.serve --loop`` flags: ``max_batch``
     wave cap, ``max_queue`` backpressure bound, ``max_delay_s`` linger,
-    ``default_deadline_s`` per-request SLO (math.inf = none)."""
+    ``default_deadline_s`` per-request SLO (math.inf = none).  ``clock``
+    is injectable for tests."""
 
     def __init__(
         self,
@@ -86,6 +87,7 @@ class AsyncTopKServer:
         max_queue: int = 1_024,
         max_delay_s: float = 2e-3,
         default_deadline_s: float = math.inf,
+        clock=time.monotonic,
     ):
         self.engine = engine
         self.k = int(k)
@@ -93,6 +95,7 @@ class AsyncTopKServer:
             max_batch=max_batch, max_queue=max_queue, max_delay_s=max_delay_s
         )
         self.default_deadline_s = float(default_deadline_s)
+        self.clock = clock
         self.stats = {
             "served": 0,
             "expired": 0,
@@ -110,7 +113,7 @@ class AsyncTopKServer:
 
     # ---- client side ------------------------------------------------
     def _admit(self, query, deadline_s: float | None):
-        now = time.monotonic()
+        now = self.clock()
         ttl = self.default_deadline_s if deadline_s is None else deadline_s
         fut = asyncio.get_running_loop().create_future()
         req = self.former.push(
@@ -155,7 +158,7 @@ class AsyncTopKServer:
     async def _run_wave(self) -> bool:
         """Form and serve one wave; False when the queue was idle."""
         async with self._serving:
-            t_form = time.monotonic()
+            t_form = self.clock()
             batch, expired, bucket = self.former.take(t_form)
             if self.former.depth < self.former.max_queue:
                 self._space.set()
@@ -183,7 +186,7 @@ class AsyncTopKServer:
                     if not req.payload.done():
                         req.payload.set_exception(e)
                 raise
-            t_done = time.monotonic()
+            t_done = self.clock()
             for req, (docs, scores) in zip(batch, outs):
                 self.stats["served"] += 1
                 if req.deadline < t_done:
@@ -201,7 +204,7 @@ class AsyncTopKServer:
         """Run waves until :meth:`close`.  Between waves the loop yields
         to admissions; idle it sleeps on the wake event."""
         while not self._closed:
-            now = time.monotonic()
+            now = self.clock()
             if self.former.ready(now):
                 await self._run_wave()
                 await asyncio.sleep(0)  # let submitters enqueue/resolve

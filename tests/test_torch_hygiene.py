@@ -54,7 +54,8 @@ def test_scanner_flags_what_it_must(tmp_path):
     "repro_torch.serving", "repro_torch.obs.server", "repro_torch.obs.export",
     "repro_torch.configs.optvb_index", "repro_torch.core.shard",
     "repro_torch.core.arena_ckpt", "repro_torch.checkpoint",
-    "repro_torch.distributed",
+    "repro_torch.distributed", "repro_torch.analyze",
+    "repro_torch.analyze.sync_audit", "repro_torch.core.competitors",
 ])
 def test_import_leaves_no_jax_or_repro_module(module):
     code = (
@@ -67,5 +68,25 @@ def test_import_leaves_no_jax_or_repro_module(module):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("name", ["discovery", "report"])
+def test_stdlib_only_analyze_module_loads_by_path_without_torch(name):
+    """``analyze/discovery.py`` and ``analyze/report.py`` load by file path
+    (as a tool does before anything imports the package) and import no
+    torch, numpy or reference module."""
+    path = os.path.join(PKG, "analyze", f"{name}.py")
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('m', {path!r})\n"
+        "mod = sys.modules['m'] = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('torch', 'numpy', 'jax', 'repro', 'repro_torch')))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=60)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"

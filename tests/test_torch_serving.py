@@ -443,3 +443,97 @@ def test_engine_error_fails_requests_and_the_server():
 
     with pytest.raises(RuntimeError, match="kernel launch failed"):
         asyncio.run(drive())
+
+
+class _RecordingEngine:
+    """Forwards to ``engine`` and records the size of every wave."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.waves = []
+
+    def topk_batch(self, queries, k):
+        self.waves.append(len(queries))
+        return self.engine.topk_batch(queries, k)
+
+
+class _FakeClock:
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def _scripted_waves(sizes):
+    """Both packages' servers, with their defaults, an injected fake
+    ``clock`` and one corpus, take bursts of ``sizes`` queries one clock
+    second apart, then one request whose deadline passes before its wave.
+    Returns (port, reference): each (results, the engine's wave sizes,
+    server stats, former stats)."""
+    lists, freqs = _corpus()
+    ref_engine = RefTopK(ref_build(lists, "optimal", freqs=freqs),
+                         backend="numpy", resident="kernel")
+    port_engine = TopKEngine(
+        build_partitioned_index(lists, "optimal", freqs=freqs), device="cpu")
+    queries = _queries(port_engine, np.random.default_rng(8), sum(sizes) + 1)
+    script, at = [], 0
+    for t, n in enumerate(sizes):
+        script.append((float(t), queries[at : at + n], None))
+        at += n
+    script.append((float(len(sizes)), queries[at:], 0.5))
+
+    async def drive(server_cls, eng):
+        clock = _FakeClock()
+        rec = _RecordingEngine(eng)
+        server = server_cls(rec, k=10, max_batch=8, max_delay_s=1e9,
+                            clock=clock)
+        out = []
+        for t, burst, deadline in script:
+            clock.t = t
+            futs = [asyncio.ensure_future(server.submit(q, deadline_s=deadline))
+                    for q in burst]
+            await asyncio.sleep(0)
+            clock.t = t + 0.75  # past the last burst's deadline
+            await server.drain()
+            out += await asyncio.gather(*futs)
+        return out, rec.waves, server.stats, dict(server.former.stats)
+
+    return (asyncio.run(drive(AsyncTopKServer, port_engine)),
+            asyncio.run(drive(RefServer, ref_engine)))
+
+
+def _assert_same_service(got, want, n_queries):
+    res, waves, stats, fstats = got
+    assert waves == want[1]
+    assert stats == want[2]
+    assert stats["expired"] == 1 and stats["served"] == n_queries
+    assert fstats == want[3]
+    assert len(res) == len(want[0]) == n_queries + 1
+    for g, w in zip(res, want[0]):
+        assert g.expired == w.expired
+        assert np.array_equal(g.docs, w.docs)
+        assert np.array_equal(g.scores, w.scores)
+        assert (g.wait_s, g.service_s) == (w.wait_s, w.service_s)
+    assert res[-1].expired and res[0].wait_s == 0.75
+
+
+def test_unpadded_waves_under_a_fake_clock_match_reference():
+    """Bursts of 4, 8 and 10 queries form waves that fill their pow2
+    buckets (4, 8, 8, 2): no query is padded on either side, and the
+    waves, expiry, top-k and fake-clock waits agree with the reference's
+    (the port's server read the real clock before it took ``clock``)."""
+    got, want = _scripted_waves([4, 8, 10])
+    assert got[1] == [4, 8, 8, 2]
+    assert got[2]["padded_queries"] == 0
+    _assert_same_service(got, want, 22)
+
+
+def test_padded_waves_under_a_fake_clock_match_reference():
+    """Bursts of 3, 5 and 11 queries: each wave is padded to its pow2
+    bucket with empty queries (4, 8, 8, 4; five padded), as the
+    reference's server pads it, with the same results."""
+    got, want = _scripted_waves([3, 5, 11])
+    assert got[1] == [4, 8, 8, 4]
+    assert got[2]["padded_queries"] == 5
+    _assert_same_service(got, want, 19)
