@@ -23,14 +23,41 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    4,096 examples to a CPU forward of the same parameters, three
    smoke-config steps on the card to three on the CPU, every loss finite;
    ``embedding_bag`` to its plain version (phase 7's check, run here while
-   the path's tensors are alive); two steps traced as in phase 4;
+   the path's tensors are alive); two steps traced as in phase 4.  Then
+   (a) ``launch.cells.make_sparse_recsys_train_step`` (rowwise Adagrad by
+   scatter on the table, AdamW on the rest) at the same width on the same
+   batches: a warm-up and 5 timed steps, two traced, its peak memory
+   beside the dense step's, three smoke-config steps held card against
+   CPU with the untouched table rows bit-unchanged (one ``recsys
+   sparse:`` line); (b) DIN and BST at full width through
+   ``launch.train.build_training(arch, smoke=False, batch=65_536)``: 6
+   timed steps (a warm-up and 5 more), then under torch's deterministic
+   algorithms a run through ``FaultTolerantRunner`` with a checkpoint
+   every 2 and a simulated failure at step 3, which must restart once,
+   replay the restored step with its first pass's loss bit for bit, and
+   end bit-equal to a run of the same steps without the failure
+   (parameters, AdamW moments, step count); every loss finite, logits of
+   4,096 examples held to a CPU forward (rtol 1e-4, atol 1e-6), three
+   smoke steps card against CPU; (c) their
+   ``serve_score`` at 512 and 262,144 examples and ``retrieval_step`` at
+   the retrieval shape's 1,000,000 candidates, or the largest power of
+   two whose measured memory fits the card (the cut printed), its first
+   256 scores held to the CPU's (one ``recsys seq:`` line an arch).  The
+   phase prints the seconds of each piece;
 4. boolean  -- ``repro_torch.launch.serve`` over the full-size corpus
    (``--n-lists 256 --min-len 10000 --max-len 2000000 --seed 0 --codec
    auto``: 104.55 M postings), then a few batches through an engine over
    the ``ef`` arena of the SAME index, with every kernel's launch count set
    to 0 just before and read just after; the batched answers are checked
    against the port's scalar NextGEQ loop, and two batches are traced with
-   ``torch.profiler`` (device time per kernel against the wall time);
+   ``torch.profiler`` (device time per kernel against the wall time).
+   Then, with the launch counts set to 0 again, ``core.jax_engine.
+   DeviceList`` over the index's two longest lists (about 2 M postings
+   each, decoded by ``decode_blocks``): the decode, the AND and 1,024
+   NextGEQ probes (past the end included) held exactly to numpy (one
+   ``device list:`` line); and the paper's two examples,
+   ``examples.quickstart.run`` and ``examples.index_serving.run``, on the
+   card, whose asserts must pass;
 5. index build -- the boolean path's corpus, made again from its seed,
    through the two device partitioners with the launch counts set to 0
    just before and read just after: ``build_partitioned_index(...,
@@ -67,7 +94,8 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    arrived and sustained q/s, request p50/p99/p99.9 from the scheduled
    arrival, waves, shed, expired);
 6c. shards  -- sharded serving over phase 4's and phase 6's indexes and
-   their first 256 queries (no corpus is built again), with the launch
+   their first 192 queries (no corpus is built again; 256 before the
+   recsys phase grew, a depth cut it prints), with the launch
    counts set to 0 just before each run and read just after
    (``decode_search`` on the boolean runs, ``bm25_score_probe`` and
    ``pivot_select`` on the ranked ones must have launched): (a) ``serve
@@ -125,7 +153,8 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    their wrappers' host time and edge launches (``pivot_edge_cases``,
    ``bag_edge_cases``);
 8. the ``kernels`` JSON line (each row also counts its launches in
-   phases 6b, 6c and 6d), then the result line.
+   phases 6b, 6c and 6d, and in phase 4's DeviceList and examples), then
+   the result line.
 
 Exits non-zero, before the result line, if any phase fails, if there is no
 CUDA card, or if the port's sources are not beside this script.
@@ -175,11 +204,11 @@ LOOP_DEADLINE_X = 3.0
 LOOP_EXPIRE_X = 0.5
 LOOP_KERNELS = ("pivot_select", "pivot_score", "bm25_score_rows")
 # phase 6c, sharded serving: SHARDS shards, SHARD_QUERIES queries a run (of
-# phase 4's and phase 6's: four batches, one of them the fault's; the depth
-# a run serves, cut before the phase budget is), and the phase's budget in
-# seconds
+# phase 4's and phase 6's: three batches, one of them the fault's; the depth
+# a run serves, cut before the phase budget is: 256 until the recsys phase
+# took DIN, BST and the sparse step), and the phase's budget in seconds
 SHARDS = 4
-SHARD_QUERIES = 256
+SHARD_QUERIES = 192
 SHARD_PHASE_S = 180.0
 LIBS = ["vbyte_decode", "ef_search", "bm25_score", "blockmax_pivot",
         "pivot_score", "gain_scan", "partition_scan", "embedding_bag"]
@@ -266,6 +295,23 @@ RECSYS_CHECK = 4096  # examples whose logits are held to a CPU forward
 RECSYS_PROFILE = 2  # steps traced by torch.profiler
 SMOKE_STEPS = 3  # smoke-config steps held card against CPU
 SMOKE_BATCH = 64
+# phase 3's sequential archs at full width, through launch.train: timed
+# steps (a warm-up and 5 more), then the same steps through
+# FaultTolerantRunner, a checkpoint every SEQ_SAVE_EVERY steps and a
+# simulated failure at step SEQ_FAIL_AT
+SEQ_ARCHS = ("din", "bst")
+SEQ_STEPS = 6
+SEQ_SAVE_EVERY = 2
+SEQ_FAIL_AT = 3
+SERVE_REPS = {"serve_p99": 20, "serve_bulk": 3}  # timed calls a shape
+RETRIEVAL_REPS = 2
+RETRIEVAL_CHECK = 256  # candidates held to a CPU retrieval
+# retrieval's memory is measured on RETRIEVAL_PROBE candidates; the run
+# takes the shape's candidates if they fit in RETRIEVAL_MEM_SHARE of the
+# card's free memory, else the largest power of two that does
+RETRIEVAL_PROBE = 1 << 16
+RETRIEVAL_MEM_SHARE = 0.85
+DEVICE_LIST_PROBES = 1024  # phase 4's NextGEQ probes through DeviceList
 # H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet): the
 # trainer's matmuls run in full f32, TF32 off
 F32_PEAK = 67e12
@@ -443,6 +489,79 @@ def run_main_path(n_lists, torch, serve, counters, QueryEngine):
           f"queries (auto arena) and {min(n_check, len(ef_results))} (ef "
           f"arena) ({time.perf_counter()-t0:.1f}s)", flush=True)
     return res, ef_engine, launches
+
+
+def run_examples_path(res, torch, counters, card) -> dict:
+    """Phase 4's second part: ``core.jax_engine.DeviceList`` over the two
+    longest lists of the boolean path's index (decoded by the CUDA
+    ``decode_blocks``), its AND and DEVICE_LIST_PROBES NextGEQ probes held
+    exactly to numpy; then the paper's two examples, ``quickstart.run``
+    and ``index_serving.run``, on the card, whose asserts must pass.  The
+    launch counts are set to 0 just before and read just after; returns
+    them."""
+    from repro_torch.core.jax_engine import DeviceList
+    from repro_torch.examples import index_serving, quickstart
+
+    t_piece = time.perf_counter()
+    idx = res["index"]
+    longest = np.argsort(idx.list_sizes, kind="stable")[-2:][::-1]
+    lists = [idx.host_engine.decode_list(int(t)) for t in longest]
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    a, b = (DeviceList(l, device=DEVICE) for l in lists)
+    up_s = time.perf_counter() - t0
+    dec = a.decode()
+    hits = a.intersect(b)
+    rng = np.random.default_rng(6)
+    hi = int(lists[0][-1])
+    probes = np.concatenate([[0, lists[0][0], hi, hi + 1, I32_MAX],
+                             rng.integers(0, hi + 1000, DEVICE_LIST_PROBES - 5)])
+    got = a.next_geq_batch(probes).cpu().numpy()
+    torch.cuda.synchronize()
+    dl_launches = {k: c.launches for k, c in counters.items()}
+    if dl_launches["decode_blocks"] != 4:
+        fail(f"DeviceList: decode_blocks launched {dl_launches['decode_blocks']} "
+             "times for 4 decodes")
+    if not np.array_equal(dec.cpu().numpy(), lists[0]):
+        fail("DeviceList: the decoded list differs from the host's")
+    h = hits.cpu().numpy()
+    inter = np.intersect1d(lists[0], lists[1])
+    if not np.array_equal(h[h >= 0], inter) or len(h) != len(lists[0]):
+        fail("DeviceList: intersect differs from numpy")
+    ks = np.searchsorted(lists[0], probes)
+    want = np.where(ks < len(lists[0]),
+                    lists[0][np.minimum(ks, len(lists[0]) - 1)], -1)
+    past = int((want == -1).sum())
+    if not np.array_equal(got, want) or past < 2:
+        fail(f"DeviceList: next_geq_batch differs from numpy ({past} probes "
+             "past the end)")
+    decode_ms = event_ms(a.decode, 5)
+    and_ms = event_ms(lambda: a.intersect(b), 5)
+    line = {"lists": [int(t) for t in longest],
+            "postings": [len(l) for l in lists], "blocks": [int(x.lens.shape[0])
+                                                            for x in (a, b)],
+            "hits": int(inter.size), "probes": len(probes), "past_end": past,
+            "upload_s": up_s, "decode_ms": decode_ms, "intersect_ms": and_ms,
+            "launches": dl_launches, "card": card}
+    print(f"[chip_smoke] device list: {json.dumps(line)}", flush=True)
+    del a, b, dec, hits
+
+    # the paper's two examples on the card
+    for name, ex in (("quickstart", quickstart), ("index_serving", index_serving)):
+        t0 = time.perf_counter()
+        out = ex.run(device=DEVICE)
+        print(f"[chip_smoke] example {name}: {json.dumps(out)} "
+              f"({time.perf_counter()-t0:.1f}s)", flush=True)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    if (launches["decode_blocks"] < dl_launches["decode_blocks"] + 3
+            or launches["decode_search"] <= 0):
+        fail(f"the examples did not launch decode_blocks (its DeviceList) and "
+             f"decode_search (its engine): {launches}")
+    print(f"[chip_smoke] device list and examples launches: {launches}; piece "
+          f"{time.perf_counter()-t_piece:.1f}s", flush=True)
+    return launches
 
 
 def span_ms() -> dict:
@@ -1068,6 +1187,9 @@ def run_shard_path(res, rres, torch, serve, counters, card):
     bool_qps = qps_of(res["engine"].intersect_batch, queries)
     ranked_qps = qps_of(lambda b: rres["engine"].topk_batch(b, TOPK),
                         rqueries)
+    print(f"[chip_smoke] depth cut: phase 6c serves {SHARD_QUERIES} queries "
+          "a run, not 256, to make room for the recsys "
+          "phase's sequential archs and sparse step", flush=True)
     print(f"[chip_smoke] shard path: the unsharded engines on the same "
           f"{len(queries)} queries: boolean {bool_qps:.2f} q/s, ranked "
           f"{ranked_qps:.2f} q/s [{card}]", flush=True)
@@ -1928,8 +2050,9 @@ def dcn_train_flops(cfg, batch: int) -> float:
 
 
 def run_recsys_path(torch, counters, card):
-    """Phase 3; returns (the run's result, launches, the device ms by name
-    of two more steps, traced after the checks)."""
+    """Phase 3, the dense step; returns (the run's result, launches, the
+    device ms by name of two more steps, traced after the checks, and the
+    ``recsys train:`` summary)."""
     from repro_torch import convert
     from repro_torch.configs import get_arch
     from repro_torch.examples import train_recsys as ex
@@ -2015,12 +2138,8 @@ def run_recsys_path(torch, counters, card):
     if not np.allclose(dev["losses"], cpu["losses"], rtol=1e-5, atol=0):
         fail(f"smoke steps: card losses {dev['losses']} != CPU "
              f"{cpu['losses']}")
-    worst = 0.0
-    want = param_dict(cpu["state"]["model"])
-    for k, p in param_dict(dev["state"]["model"]).items():
-        w = want[k].detach()
-        d = (p.detach().cpu() - w).abs() / (1e-5 + 1e-4 * w.abs())
-        worst = max(worst, float(d.max()))
+    worst = worst_ratio(torch, param_dict(dev["state"]["model"]),
+                        param_dict(cpu["state"]["model"]))
     if worst > 1:
         fail(f"smoke steps: card parameters off the CPU's ({worst:.2f}x "
              "the tolerance)")
@@ -2031,7 +2150,420 @@ def run_recsys_path(torch, counters, card):
     prof = profile_calls(torch, [lambda s=s: ex.train_step(res["state"], s, batch)
                                  for s in range(steps, steps + RECSYS_PROFILE)],
                          card, "recsys", "steps")
-    return res, launches, prof
+    # the dense step alone on the timed batches, already on the card, as
+    # the sparse step is timed: no batch upload, no bag
+    st = res["state"]
+
+    def dense_step(b):
+        _, _, m = st["step_fn"](st["model"], st["opt"], b)
+        return float(m["loss"])
+
+    alone_ms = []
+    for r in timed:
+        t0 = time.perf_counter()
+        dense_step(r["batch"])
+        torch.cuda.synchronize()
+        alone_ms.append((time.perf_counter() - t0) * 1e3)
+    alone = {"step_p50_ms": float(np.percentile(alone_ms, 50)),
+             "step_p99_ms": float(np.percentile(alone_ms, 99)),
+             "step_ms": alone_ms,
+             "prof": profile_calls(torch, [lambda b=r["batch"]: dense_step(b)
+                                           for r in timed[:RECSYS_PROFILE]],
+                                   card, "recsys dense step alone", "steps")}
+    return res, launches, prof, summary, alone
+
+
+def worst_ratio(torch, got: dict, want: dict, atol=1e-5, rtol=1e-4) -> float:
+    """The largest |got - want| / (atol + rtol |want|) over two dicts of
+    tensors by name (on any devices): above 1 is off the tolerance."""
+    worst = 0.0
+    for k, w in want.items():
+        w = w.detach().cpu()
+        d = (got[k].detach().cpu() - w).abs() / (atol + rtol * w.abs())
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+    return worst
+
+
+def elements_off(torch, got: dict, want: dict, atol=1e-5,
+                 rtol=1e-4) -> dict:
+    """The elements of each tensor of ``got`` off ``want`` by more than
+    ``atol + rtol |want|``, by name (only the names with any)."""
+    off = {}
+    for k, w in want.items():
+        w = w.detach()
+        n = int(((got[k].detach() - w).abs() > atol + rtol * w.abs()).sum())
+        if n:
+            off[k] = n
+    return off
+
+
+def run_sparse_step(torch, batches, dense, alone, card):
+    """Phase 3a: ``launch.cells.make_sparse_recsys_train_step`` at the full
+    DCN-v2 width on the dense step's batches (``batches``: the trainer's,
+    with their ``embedding_bag`` splice), a warm-up step and the timed
+    ones, beside the dense step (``dense``: its summary; ``alone``: the
+    dense step alone on the same batches, its times and its profile's
+    device ms by name); then smoke-config steps on the card held to the
+    CPU's.  Returns its summary."""
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.data.recsys_data import make_ctr_batch
+    from repro_torch.launch.cells import (
+        make_sparse_recsys_train_step,
+        sparse_opt_init,
+    )
+    from repro_torch.models.common import param_dict, tree_size
+    from repro_torch.models.recsys import init_model
+
+    t_piece = time.perf_counter()
+    bundle = get_arch(RECSYS_ARCH)
+    cfg = bundle.full
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_model(cfg, 0, DEVICE)
+    opt = sparse_opt_init(model)
+    step = make_sparse_recsys_train_step(cfg)
+    losses, step_ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        _, _, m = step(model, opt, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() - base
+    if not np.isfinite(losses).all():
+        fail(f"sparse step: a loss is not finite: {losses}")
+    prof = profile_calls(torch, [lambda b=b: step(model, opt, b)
+                                 for b in batches[:RECSYS_PROFILE]],
+                         card, "recsys sparse", "steps")
+    timed = step_ms[RECSYS_WARMUP:]
+    n_params = tree_size(model)
+    del model, opt
+    torch.cuda.empty_cache()
+
+    # smoke-config steps on the card against the CPU, from one init
+    smoke = bundle.smoke
+    init = convert.recsys_params_to_arrays(init_model(smoke, 0, "cpu"))
+    runs = {}
+    touched = np.zeros(smoke.table_rows, bool)
+    for dev in ("cpu", DEVICE):
+        m = convert.recsys_params_from_arrays(init, smoke, dev)
+        o = sparse_opt_init(m)
+        st = make_sparse_recsys_train_step(smoke)
+        ls = []
+        for s in range(SMOKE_STEPS):
+            b = make_ctr_batch(np.random.default_rng(s), smoke, SMOKE_BATCH)
+            touched[(b["sparse"] + np.arange(smoke.n_sparse)
+                     * smoke.rows_per_field).reshape(-1)] = True
+            _, _, mm = st(m, o, {k: torch.from_numpy(v).to(dev)
+                                 for k, v in b.items()})
+            ls.append(float(mm["loss"]))
+        runs[dev] = (m, o, ls)
+    (cm, co, cl), (dm, do, dl) = runs["cpu"], runs[DEVICE]
+    if not np.allclose(dl, cl, rtol=1e-5, atol=0):
+        fail(f"sparse smoke steps: card losses {dl} != CPU {cl}")
+    worst = worst_ratio(torch, param_dict(dm), param_dict(cm))
+    acc = worst_ratio(torch, {"acc": do["table_acc"]}, {"acc": co["table_acc"]},
+                      atol=1e-10, rtol=1e-5)
+    table0 = torch.from_numpy(init["table"])
+    rest = torch.from_numpy(~touched)
+    untouched = bool(torch.equal(dm.table.detach().cpu()[rest], table0[rest]))
+    if worst > 1 or acc > 1 or not untouched:
+        fail(f"sparse smoke steps: card parameters {worst:.2f}x, accumulator "
+             f"{acc:.2f}x the tolerance; untouched rows unchanged: {untouched}")
+    dense_prof = alone["prof"]
+    dense_busy = sum(dense_prof.values())
+    busy = sum(prof.values())
+    summary = {
+        "config": cfg.name, "params": n_params, "batch": dense["batch"],
+        "steps": len(batches), "warmup_steps": RECSYS_WARMUP,
+        "step_p50_ms": float(np.percentile(timed, 50)),
+        "step_p99_ms": float(np.percentile(timed, 99)), "step_ms": timed,
+        "dense_step_p50_ms": alone["step_p50_ms"],
+        "dense_step_p99_ms": alone["step_p99_ms"],
+        "dense_step_ms": alone["step_ms"],
+        "losses": losses,
+        "device_busy_ms": busy, "dense_device_busy_ms": dense_busy,
+        "multi_tensor_apply_ms": profile_ms(prof, "multi_tensor_apply"),
+        "dense_multi_tensor_apply_ms": profile_ms(dense_prof,
+                                                  "multi_tensor_apply"),
+        "profiled_steps": RECSYS_PROFILE,
+        "max_memory_allocated": peak,
+        "dense_max_memory_allocated": dense["max_memory_allocated"],
+        "table_acc_bytes": cfg.table_rows * 4,
+        "table_adamw_moment_bytes": cfg.table_rows * cfg.embed_dim * 4 * 2,
+        "smoke_worst_of_tolerance": worst, "smoke_acc_worst_of_tolerance": acc,
+        "piece_s": time.perf_counter() - t_piece, "card": card,
+    }
+    print(f"[chip_smoke] recsys sparse: {json.dumps(summary)}", flush=True)
+    print(f"[chip_smoke] recsys sparse smoke config: {SMOKE_STEPS} steps of "
+          f"{SMOKE_BATCH} on the card equal the CPU's (losses within rtol "
+          f"1e-5; parameters within {worst:.3f} of atol 1e-5 + rtol 1e-4, "
+          f"the accumulator within {acc:.3f} of atol 1e-10 + rtol 1e-5; the "
+          f"{int((~touched).sum()):,} rows no batch touched bit-unchanged); "
+          f"both steps timed and traced on the same batches, already on the "
+          f"card (no upload, no bag); piece {summary['piece_s']:.1f}s",
+          flush=True)
+    return summary
+
+
+def retrieval_size(torch, fn, want: int) -> tuple[int, float]:
+    """(candidates to run, device bytes a candidate): ``want`` if its
+    measured memory fits RETRIEVAL_MEM_SHARE of the card's free memory,
+    else the largest power of two that does.  ``fn(c)`` runs a retrieval
+    of ``c`` candidates; it is measured on RETRIEVAL_PROBE."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn(RETRIEVAL_PROBE)
+    torch.cuda.synchronize()
+    per = (torch.cuda.max_memory_allocated() - base) / RETRIEVAL_PROBE
+    torch.cuda.empty_cache()
+    room = RETRIEVAL_MEM_SHARE * torch.cuda.mem_get_info()[0]
+    if want * per <= room:
+        return want, per
+    c = 1 << int(np.log2(room / per))
+    return min(c, want), per
+
+
+def run_seq_arch(torch, arch, card):
+    """Phase 3b and 3c for one sequential arch at full width: timed steps
+    through ``launch.train.build_training``; under deterministic
+    algorithms the same steps through ``FaultTolerantRunner`` (a
+    checkpoint every SEQ_SAVE_EVERY steps, a failure at SEQ_FAIL_AT) held
+    bit for bit to a run without the failure; logits held to a CPU
+    forward and (smoke config) steps to CPU steps; then ``serve_score`` at the serve
+    shapes and ``retrieval_step`` at the retrieval shape.  Returns the
+    ``recsys seq:`` line."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import FaultTolerantRunner, SimulatedFailure
+    from repro_torch.launch.train import build_training, named_leaves
+    from repro_torch import convert
+    from repro_torch.models.common import tree_size
+    from repro_torch.models.recsys import (
+        Recsys,
+        init_model,
+        retrieval_step,
+        serve_score,
+    )
+
+    t_arch = time.perf_counter()
+    bundle = get_arch(arch)
+    shapes = {s.name: s for s in bundle.shapes}
+    batch = shapes[RECSYS_SHAPE].batch
+    torch.cuda.empty_cache()
+    state, step, batches, cfg = build_training(arch, smoke=False, batch=batch,
+                                               device=DEVICE)
+    state0, state1 = (tree_map(lambda x: x.clone() if isinstance(
+        x, torch.Tensor) else x, state) for _ in range(2))
+    # the peak counts the training state and what the steps allocate, not
+    # the two copies kept for the restart check
+    base = torch.cuda.memory_allocated() - sum(
+        t.numel() * t.element_size() for t in named_leaves(state).values()
+        if isinstance(t, torch.Tensor))
+    torch.cuda.reset_peak_memory_stats()
+    made = {}
+
+    def cached(s):  # each step's batch is drawn and uploaded once
+        if s not in made:
+            made[s] = batches(s)
+        return made[s]
+
+    # the timed run: SEQ_STEPS steps in torch's default mode
+    step_ms, timed_losses = [], []
+    for s in range(SEQ_STEPS):
+        b = cached(s)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        timed_losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() - base
+    if not np.isfinite(timed_losses).all():
+        fail(f"{arch}: a loss is not finite: {timed_losses}")
+
+    # the restart check, under torch's deterministic algorithms (cuBLAS's
+    # workspace fixed in main): the run with a failure and a run of the
+    # same steps without it must end bit-equal, parameters, both AdamW
+    # moments and the step count
+    losses = []
+
+    def logged(st, b):
+        st, m = step(st, b)
+        losses.append(float(m["loss"]))
+        return st, m
+
+    ckpt = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    torch.use_deterministic_algorithms(True)
+    try:
+        manager = CheckpointManager(ckpt, keep=2)
+        runner = FaultTolerantRunner(logged, manager, save_every=SEQ_SAVE_EVERY)
+        t0 = time.perf_counter()
+        restarted = runner.run(state0, cached, SEQ_STEPS,
+                               failure=SimulatedFailure(at_steps=(SEQ_FAIL_AT,)))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in pathlib.Path(ckpt).rglob("*")
+                         if f.is_file())
+        unbroken = state1
+        for s in range(SEQ_STEPS):
+            unbroken, _ = step(unbroken, cached(s))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    stats = runner.stats
+    if stats.restarts != 1 or stats.steps_completed != SEQ_STEPS + stats.wasted_steps:
+        fail(f"{arch}: run statistics {stats}, not one restart")
+    if not np.isfinite(losses).all():
+        fail(f"{arch}: a loss is not finite: {losses}")
+    # the step the restart replayed first gives its first pass's loss
+    at = SEQ_FAIL_AT - stats.wasted_steps
+    if losses[at] != losses[SEQ_FAIL_AT]:
+        fail(f"{arch}: the replayed step {at} lost {losses[SEQ_FAIL_AT]}, the "
+             f"first pass {losses[at]}: the restore is not the checkpoint")
+    if not int(unbroken[1]["count"]) == int(restarted[1]["count"]) == SEQ_STEPS:
+        fail(f"{arch}: step counts {unbroken[1]['count']} and "
+             f"{restarted[1]['count']}")
+
+    def tensors(st):  # the parameters and both AdamW moments, by name
+        return named_leaves({"params": st[0], "m": st[1]["m"], "v": st[1]["v"]})
+
+    want = tensors(unbroken)
+    n_elems = sum(x.numel() for x in want.values())
+    got = tensors(restarted)
+    n_off = sum(int((got[k] != w).sum()) for k, w in want.items())
+    # the default mode's run against the deterministic one: the card's
+    # embedding backward sums repeated rows with atomics in no fixed order
+    spread = elements_off(torch, tensors(state), want)
+    n_spread = sum(spread.values())
+    top = dict(sorted(spread.items(), key=lambda kv: -kv[1])[:4])
+    print(f"[chip_smoke] {arch} restart, deterministic algorithms: the "
+          f"replayed step {at}'s loss equals its first pass; {n_off} of "
+          f"{n_elems:,} elements (parameters and AdamW moments) differ from "
+          f"an unbroken run's; the default mode's timed run is off the "
+          f"unbroken run's by more than atol 1e-5 + rtol 1e-4 in {n_spread} "
+          f"({json.dumps(top)}); {run_s:.1f}s with the restart", flush=True)
+    if n_off:
+        fail(f"{arch}: the restarted run ends in {n_off} elements off an "
+             f"unbroken run's under deterministic algorithms")
+    state = restarted
+    del unbroken, state0, state1, got, want
+    timed_ms = step_ms[RECSYS_WARMUP:]
+    model = Recsys(cfg, state[0])
+
+    # the card's logits against a CPU forward of the same parameters
+    first = cached(0)
+    sub = {k: v[:RECSYS_CHECK] for k, v in first.items()}
+    with torch.no_grad():
+        got = serve_score(model, sub, cfg).cpu()
+        host = Recsys(cfg, tree_map(lambda x: x.cpu() if isinstance(
+            x, torch.Tensor) else x, state[0]))
+        want = serve_score(host, {k: v.cpu() for k, v in sub.items()}, cfg)
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-6) or not torch.isfinite(got).all():
+        fail(f"{arch}: logits on the card differ from the CPU forward: max "
+             f"|diff| {float((got - want).abs().max()):.3e}")
+    logit_diff = float((got - want).abs().max())
+
+    # smoke-config steps on the card against the CPU, from one init
+    smoke = bundle.smoke
+    init = convert.recsys_params_to_arrays(init_model(smoke, 0, "cpu"))
+    runs = {}
+    for dev in ("cpu", DEVICE):
+        st, stp, bts, _ = build_training(arch, True, SMOKE_BATCH, device=dev,
+                                         params=init)
+        ls = []
+        for s in range(SMOKE_STEPS):
+            st, m = stp(st, bts(s))
+            ls.append(float(m["loss"]))
+        runs[dev] = (st, ls)
+    if not np.allclose(runs[DEVICE][1], runs["cpu"][1], rtol=1e-5, atol=0):
+        fail(f"{arch} smoke steps: card losses {runs[DEVICE][1]} != CPU "
+             f"{runs['cpu'][1]}")
+    smoke_worst = worst_ratio(torch, named_leaves(runs[DEVICE][0][0]),
+                              named_leaves(runs["cpu"][0][0]))
+    if smoke_worst > 1:
+        fail(f"{arch} smoke steps: card parameters {smoke_worst:.2f}x the "
+             "tolerance off the CPU's")
+
+    # serving: the serve shapes from the trainer's batches, on the card
+    serve_ms = {}
+    cat = {k: torch.cat([cached(s)[k] for s in range(SEQ_STEPS)])
+           for k in first}
+    with torch.no_grad():
+        for name, reps in SERVE_REPS.items():
+            n = shapes[name].batch
+            if n > len(cat["target"]):
+                fail(f"{arch}: {name} needs {n} examples")
+            b = {k: v[:n] for k, v in cat.items()}
+            out = serve_score(model, b, cfg)
+            if out.shape != (n,) or not torch.isfinite(out).all():
+                fail(f"{arch}: {name} scores are not {n} finite values")
+            serve_ms[name] = event_ms(lambda b=b: serve_score(model, b, cfg), reps)
+        del cat
+        want_c = shapes["retrieval_cand"].n_candidates
+        rng = np.random.default_rng(5)
+        cands = torch.from_numpy(rng.integers(0, cfg.item_vocab, want_c)
+                                 .astype(np.int32)).to(DEVICE)
+        user = {"history": first["history"][:1], "hist_mask": first["hist_mask"][:1]}
+
+        def retrieve(c):
+            return retrieval_step(model, {**user, "candidates": cands[:c]}, cfg)
+
+        n_cand, per = retrieval_size(torch, retrieve, want_c)
+        torch.cuda.reset_peak_memory_stats()
+        scores = retrieve(n_cand)
+        retr_peak = torch.cuda.max_memory_allocated()
+        if scores.shape != (n_cand,) or not torch.isfinite(scores).all():
+            fail(f"{arch}: retrieval scores are not {n_cand} finite values")
+        retr_ms = event_ms(lambda: retrieve(n_cand), RETRIEVAL_REPS)
+        cpu_scores = retrieval_step(host, {
+            **{k: v.cpu() for k, v in user.items()},
+            "candidates": cands[:RETRIEVAL_CHECK].cpu()}, cfg)
+        if not torch.allclose(scores[:RETRIEVAL_CHECK].cpu(), cpu_scores,
+                              rtol=1e-4, atol=1e-6):
+            fail(f"{arch}: retrieval scores on the card differ from the CPU's")
+        del scores
+    if n_cand < want_c:
+        print(f"[chip_smoke] retrieval cut: {arch} retrieves {n_cand:,} "
+              f"candidates, not {want_c:,}: {per:,.0f} B a candidate on the "
+              f"card, {want_c * per / 1e9:.1f} GB for all of them", flush=True)
+    line = {
+        "config": cfg.name, "params": tree_size(state[0]), "batch": batch,
+        "steps": SEQ_STEPS, "warmup_steps": RECSYS_WARMUP,
+        "step_p50_ms": float(np.percentile(timed_ms, 50)),
+        "step_p99_ms": float(np.percentile(timed_ms, 99)),
+        "step_ms": timed_ms, "losses": timed_losses,
+        "restart_run_losses": losses,
+        "examples_per_s": batch / (float(np.percentile(timed_ms, 50)) / 1e3),
+        "run_stats": stats.as_dict(), "save_every": SEQ_SAVE_EVERY,
+        "fail_at": SEQ_FAIL_AT, "checkpoint_bytes_on_disk": ckpt_bytes,
+        "run_s": run_s, "restart_elements_off": n_off,
+        "default_mode_elements_off": n_spread, "elements_compared": n_elems,
+        "logits_max_abs_diff": logit_diff,
+        "smoke_worst_of_tolerance": smoke_worst,
+        "max_memory_allocated": peak,
+        "serve_p99_ms": serve_ms["serve_p99"],
+        "serve_p99_batch": shapes["serve_p99"].batch,
+        "serve_bulk_ms": serve_ms["serve_bulk"],
+        "serve_bulk_batch": shapes["serve_bulk"].batch,
+        "retrieval_candidates": n_cand, "retrieval_shape_candidates": want_c,
+        "retrieval_ms": retr_ms, "retrieval_bytes_per_candidate": per,
+        "retrieval_max_memory_allocated": retr_peak,
+        "arch_s": time.perf_counter() - t_arch, "card": card,
+    }
+    print(f"[chip_smoke] recsys seq: {json.dumps(line)}", flush=True)
+    del model, host, state
+    torch.cuda.empty_cache()
+    return line
 
 
 def bag_edge_cases(torch) -> dict:
@@ -2187,6 +2719,10 @@ def main(argv=None) -> int:
                     help="queries served by the ranked path (512)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+    # phase 3b runs under torch's deterministic algorithms, which need
+    # cuBLAS's workspace fixed before its first call (32 MiB, torch's
+    # default on Hopper)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     import torch
 
@@ -2227,13 +2763,26 @@ def main(argv=None) -> int:
     ptx_divs = check_ptx()
 
     # 3. the recsys trainer at full width, counted; embedding_bag's check
-    # runs while the path's tensors are alive, then they are freed
-    rec_res, rec_launches, rec_prof = run_recsys_path(
+    # runs while the path's tensors are alive, then they are freed but the
+    # trainer's batches, on which the sparse step trains; then DIN and BST
+    t_phase = time.perf_counter()
+    rec_res, rec_launches, rec_prof, rec_summary, rec_alone = run_recsys_path(
         torch, {"embedding_bag": ebk.embedding_bag, "decode_blocks":
                 vk.decode_blocks}, card)
     bag_row = check_recsys_kernels(torch, rec_res, rec_launches, card, rec_prof)
+    rec_batches = [r["batch"] for r in rec_res["records"]]
     del rec_res
     torch.cuda.empty_cache()
+    dense_s = time.perf_counter() - t_phase
+    sparse = run_sparse_step(torch, rec_batches, rec_summary, rec_alone, card)
+    del rec_batches
+    seq = {arch: run_seq_arch(torch, arch, card) for arch in SEQ_ARCHS}
+    piece_s = {"dense": dense_s, "sparse": sparse["piece_s"],
+               **{a: line["arch_s"] for a, line in seq.items()}}
+    print(f"[chip_smoke] recsys phase: {json.dumps(piece_s)}; the sparse "
+          f"step, DIN and BST took "
+          f"{sum(piece_s.values()) - dense_s:.1f}s; phase "
+          f"{time.perf_counter()-t_phase:.1f}s", flush=True)
 
     # 4. the boolean path, counted
     counters = {"decode_search": vk.decode_search,
@@ -2252,6 +2801,8 @@ def main(argv=None) -> int:
         "batch_p99_ms": res["batch_p99_s"] * 1e3, "card": card,
     }
     print(f"[chip_smoke] boolean path: {json.dumps(summary)}", flush=True)
+    # DeviceList over the index's two longest lists, and the two examples
+    ex_launches = run_examples_path(res, torch, counters, card)
 
     bool_profile = profile_batches(torch, res["engine"].intersect_batch,
                                    res["queries"], card, "boolean")
@@ -2307,6 +2858,7 @@ def main(argv=None) -> int:
         row["loop_launches"] = loop_launches.get(row["name"], 0)
         row["shard_launches"] = shard_launches.get(row["name"], 0)
         row["analyze_launches"] = analyze_launches.get(row["name"], 0)
+        row["examples_launches"] = ex_launches.get(row["name"], 0)
     if len(kernels) != N_KERNELS:
         fail(f"the kernels line has {len(kernels)} rows, not {N_KERNELS}")
     print(f"[chip_smoke] all phases passed in "

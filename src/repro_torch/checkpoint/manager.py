@@ -7,8 +7,8 @@ format, so a checkpoint either package writes restores in the other:
     the latest checkpoint;
   * retention of the last ``keep`` checkpoints;
   * async save (background thread) so the caller is not blocked;
-  * leaves are stored logically (full host arrays: a tensor goes through
-    ``.cpu().numpy()``); ``restore(..., devices=)`` places them on the
+  * leaves are stored logically (full host arrays, copied when ``save``
+    is called); ``restore(..., devices=)`` places them on the
     target devices, so a job may restart on another device layout;
   * integer arrays that are strictly increasing are stored OptVB-packed
     with the paper's optimal partitioning -- the framework's own codec.
@@ -121,9 +121,12 @@ def tree_map(fn, tree, *rest):
 
 
 def _to_host(leaf):
+    """A host copy of one leaf, taken when ``save`` is called: a CPU
+    tensor's ``.numpy()`` would share its memory, so a step that updates
+    it in place during an async save would change what is written."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        return leaf.detach().to("cpu", copy=True).numpy()
+    return np.array(leaf)
 
 
 # --------------------------------------------------------------------------

@@ -3,7 +3,9 @@
 Counterpart of ``repro/configs/__init__.py``.  Each arch module defines an
 ``ArchBundle`` with the full config of the reference, its reduced smoke
 config and its shape set; ``get_arch(id)`` and ``all_arch_ids()`` load
-only the archs the port runs (dcn-v2, dlrm-rm2).
+only the archs the port runs: the four recsys archs (bst, dcn-v2, din,
+dlrm-rm2).  The LM and GNN archs come with later slices (ROADMAP Queue A
+7: A7c, A7d).
 """
 
 from __future__ import annotations
@@ -46,6 +48,11 @@ def register(bundle: ArchBundle) -> ArchBundle:
 
 def get_arch(arch_id: str) -> ArchBundle:
     _load_all()
+    if arch_id not in _REGISTRY:
+        raise NotImplementedError(
+            f"{arch_id!r} is not one of the port's archs {sorted(_REGISTRY)}: "
+            f"the LM and GNN archs come with later slices of the port "
+            f"(ROADMAP Queue A 7: A7c, A7d)")
     return _REGISTRY[arch_id]
 
 
@@ -61,7 +68,7 @@ def _load_all() -> None:
     global _LOADED
     if _LOADED:
         return
-    from . import dcn_v2, dlrm_rm2  # noqa: F401
+    from . import bst, dcn_v2, din, dlrm_rm2  # noqa: F401
     _LOADED = True
 
 

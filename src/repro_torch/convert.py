@@ -55,10 +55,12 @@ def index_from_arrays(d: dict) -> PartitionedIndex:
     return PartitionedIndex(**kw)
 
 
-def recsys_params_from_arrays(tree: dict, cfg, device="cuda"):
-    """The port's ``Recsys`` module from the reference's parameter tree
-    (``repro.models.recsys.init_params`` as numpy arrays: the same names
-    and ``[in, out]`` layouts, so each leaf is a copy) on ``device``."""
+def recsys_tree_from_arrays(tree: dict, cfg, device="cuda") -> dict:
+    """The reference's parameter tree (``repro.models.recsys.init_params``
+    as numpy arrays) as the same tree of f32 tensors on ``device``, checked
+    leaf for leaf against ``cfg``'s shapes.  Lists of layers (``cross``,
+    ``mlp``, ``attn``, ``bot``, ``top``) and BST's ``blocks`` (six leaves
+    a block) keep their structure; each leaf is a copy."""
     from .api import resolve_device
     from .models.recsys import Recsys, param_shapes
 
@@ -70,18 +72,26 @@ def recsys_params_from_arrays(tree: dict, cfg, device="cuda"):
     params = {k: ([{n: leaf(v) for n, v in layer.items()} for layer in x]
                   if isinstance(x, (list, tuple)) else leaf(x))
               for k, x in tree.items()}
-    model = Recsys(cfg, params)
-    got = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    got = {k: tuple(p.shape) for k, p in Recsys(cfg, params).named_parameters()}
     want = param_shapes(cfg)
     if got != want:
         raise ValueError(f"parameter tree does not fit {cfg.name}: "
                          f"{sorted(set(got.items()) ^ set(want.items()))}")
-    return model
+    return params
+
+
+def recsys_params_from_arrays(tree: dict, cfg, device="cuda"):
+    """The port's ``Recsys`` module from the reference's parameter tree
+    (see ``recsys_tree_from_arrays``) on ``device``."""
+    from .models.recsys import Recsys
+
+    return Recsys(cfg, recsys_tree_from_arrays(tree, cfg, device))
 
 
 def recsys_params_to_arrays(model) -> dict:
     """The reference's parameter tree (nested dicts and lists of numpy f32
-    arrays) from the port's ``Recsys`` module."""
+    arrays) from the port's ``Recsys`` module, of any of the four kinds
+    (``blocks.0.wqkv`` becomes ``tree["blocks"][0]["wqkv"]``)."""
     tree: dict = {}
     for name, p in model.named_parameters():
         x = p.detach().cpu().numpy()

@@ -4,7 +4,8 @@ Stream-VByte decoder.
 Counterpart of ``repro/kernels/vbyte_decode/ops.py``.  Two backends:
 ``"numpy"`` (the vectorized host mirror) and ``"torch"`` (the kernel
 wrappers of ``kernel.py`` on ``device``: the CUDA kernels on a card, their
-plain versions on the CPU).
+plain versions on the CPU).  ``decode`` and ``decode_sorted`` decode a
+whole packed list to tensors (``core.jax_engine.DeviceList``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from .kernel import BLOCK_BYTES, BLOCK_VALS, BM, decode_blocks
 from .kernel import decode_search as decode_search_dev
+from .ref import decode_blocks_ref
 
 BACKENDS = ("numpy", "torch")
 
@@ -164,6 +166,40 @@ def decode_block_rows(
         torch.as_tensor(np.asarray(data_rows, np.uint8), device=device),
     )
     return out.cpu().numpy().astype(np.int64)
+
+
+def _tensor(x, dtype, device):
+    """A tensor stays on its device; an array goes to ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype)
+    from ...api import resolve_device
+
+    return torch.as_tensor(np.asarray(x), device=resolve_device(device)).to(dtype)
+
+
+def decode(lens, data, n: int, use_kernel: bool = True, device="cuda"):
+    """Block-decode to values [n] int32 (gap - 1).
+
+    lens [nb,128] / data [nb,512]: tensors (decoded on their device) or
+    numpy arrays (shipped to ``device``, the card unless the caller asks
+    for the CPU).  ``use_kernel`` runs the ``decode_blocks`` wrapper (the
+    CUDA kernel on a card, its plain version on the CPU), else the plain
+    version itself.
+    """
+    lens = _tensor(lens, torch.int32, device)
+    data = _tensor(data, torch.uint8, device)
+    if use_kernel:
+        out = decode_blocks(lens, data)
+    else:
+        out = decode_blocks_ref(lens, data)
+    return out.reshape(-1)[:n]
+
+
+def decode_sorted(lens, data, n: int, base: int = -1, **kw):
+    """Decode d-gap-encoded sorted ids (gap-1 convention, see core.costs):
+    int64 [n], ``base + cumsum(gaps)``."""
+    gaps = decode(lens, data, n, **kw).long() + 1
+    return base + torch.cumsum(gaps, 0)
 
 
 def decode_search_np(

@@ -41,6 +41,14 @@ def decode_blocks_ref(lens, data, rows=None):
     return out.to(torch.int32)
 
 
+def decode_sorted_ref(lens, data, base: int = -1):
+    """Full d-gap decode of every block: blocks -> gaps (the +1
+    convention) -> absolute ids, int64 [nb * 128] (padding lanes
+    included)."""
+    gaps = decode_blocks_ref(lens, data).reshape(-1).long() + 1
+    return base + torch.cumsum(gaps, 0)
+
+
 def row_docids(lens, data, block_base, rows, codec_row=None):
     """[n,128] int32 docIDs ``block_base + cumsum(gap)`` of located rows."""
     rows, srows = _storage_rows(rows, codec_row)

@@ -104,6 +104,30 @@ def test_checkpoint_async(tmp_path):
     assert torch.equal(restored["x"], torch.ones((8, 8)))
 
 
+def test_save_snapshots_tensors_updated_in_place_after_it(tmp_path):
+    """A step that updates the state in place right after an async
+    ``save`` (as the launcher's does) must not change what the save
+    writes: the leaves are copied when ``save`` is called, also for CPU
+    tensors, whose ``.numpy()`` would share their memory.  The writer is
+    held until the update is done."""
+    import threading
+
+    mgr = CheckpointManager(tmp_path, keep=1, async_save=True)
+    go = threading.Event()
+    write = mgr._save_sync
+    mgr._save_sync = lambda step, host_tree: (go.wait(10), write(step, host_tree))
+    x = torch.arange(1 << 16, dtype=torch.float32)
+    tree = {"x": x, "count": np.array(3, np.int32)}
+    mgr.save(1, tree)
+    x.mul_(-1.0)
+    tree["count"] += 1
+    go.set()
+    mgr.wait()
+    restored, _ = mgr.restore(tree)
+    assert torch.equal(restored["x"], torch.arange(1 << 16, dtype=torch.float32))
+    assert int(restored["count"]) == 3
+
+
 def test_fault_tolerant_runner_determinism(tmp_path):
     """Training with a mid-run crash reaches the exact state of an
     uninterrupted run (checkpoint + deterministic data replay)."""

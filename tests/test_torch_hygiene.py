@@ -56,6 +56,8 @@ def test_scanner_flags_what_it_must(tmp_path):
     "repro_torch.core.arena_ckpt", "repro_torch.checkpoint",
     "repro_torch.distributed", "repro_torch.analyze",
     "repro_torch.analyze.sync_audit", "repro_torch.core.competitors",
+    "repro_torch.launch.train", "repro_torch.core.jax_engine",
+    "repro_torch.examples.quickstart", "repro_torch.examples.index_serving",
 ])
 def test_import_leaves_no_jax_or_repro_module(module):
     code = (

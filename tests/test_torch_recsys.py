@@ -1,17 +1,25 @@
-"""The port's recsys trainer path against the JAX package, at the smoke
-configs: configs and registry, parameters carried across, forward / loss /
-serve / retrieval, gradients, AdamW, the train step, the data pipeline and
-the whole example loop.
+"""The port's recsys models and trainer path against the JAX package, at
+the smoke configs of the four recsys archs (DCN-v2, DLRM, DIN, BST):
+configs and registry, parameters carried across, forward / loss / serve /
+retrieval, gradients, AdamW, the train step, the data pipeline and the
+whole example loop.
 
 Tolerances and why: forward, loss and scores rtol 1e-5 and gradients atol
 1e-6 (f32 sums in another order: XLA's dots against torch's); the optimizer
 atol 1e-6 + rtol 1e-5 (its pow, sqrt and global-norm sum may differ by an
 ulp); train steps losses rtol 1e-5 and parameters atol 1e-5 + rtol 1e-4
 (Adam divides by sqrt(v) + eps, so a gradient near eps carries its ulp
-differences into the step); the data pipeline exactly.
+differences into the step), where at most ceil(1e-5 x the parameter
+count) elements whose RMS gradient is nonzero but under 100 x eps may
+lie within Adam's step bound instead (``_assert_params_close``), in BST's
+4-step train-step test alone, which has one such element; every other
+arch and test holds every element to the plain bound; the data pipeline
+exactly.
 """
 
 import dataclasses
+import hashlib
+import math
 
 import numpy as np
 import pytest
@@ -40,7 +48,7 @@ from repro_torch.models import common as TC
 from repro_torch.models.common import param_dict, tree_size
 from repro_torch.optim import adamw as tadamw
 
-ARCHS = ["dcn-v2", "dlrm-rm2"]
+ARCHS = ["bst", "dcn-v2", "din", "dlrm-rm2"]  # the reference's RS_ARCHS, sorted
 
 
 def _carried(arch, seed=0):
@@ -65,12 +73,40 @@ def _batch(rng, cfg, B):
     return b, {k: torch.from_numpy(v) for k, v in b.items()}
 
 
-def _assert_params_close(model, tree, atol, rtol):
+def _assert_params_close(model, tree, atol, rtol, adam=None):
+    """The port's parameters (a module, or a dict of tensors by dotted
+    name) against the reference's tree, every element within ``atol + rtol
+    * |want|``.
+
+    With ``adam`` = (the reference's AdamW state, the summed lr of its
+    steps), an element may instead lie within Adam's step bound (2 x the
+    summed lr) if its bias-corrected RMS gradient sqrt(v_hat) is nonzero
+    but under 100 x Adam's eps (1e-8): there m_hat / (sqrt(v_hat) + eps)
+    turns an ulp-sized difference of a gradient that f32 sums cancel to
+    near eps into a step of order lr, and no sum order pins it.  At most
+    ceil(1e-5 x the parameter count) elements may use that bound."""
     want = _flat(tree)
-    got = {k: p.detach().numpy() for k, p in param_dict(model).items()}
+    named = model if isinstance(model, dict) else param_dict(model)
+    got = {k: p.detach().numpy() for k, p in named.items()}
     assert list(got) == list(want)  # the JAX tree's leaf order
+    if adam is None:
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], atol=atol, rtol=rtol,
+                                       err_msg=k)
+        return 0
+    opt, lr_sum = adam
+    v = _flat(opt["v"])
+    c2 = 1.0 - 0.95 ** int(opt["count"])
+    n_cond = 0
     for k in want:
-        np.testing.assert_allclose(got[k], want[k], atol=atol, rtol=rtol, err_msg=k)
+        diff = np.abs(got[k] - want[k])
+        off = diff > atol + rtol * np.abs(want[k])
+        near_eps = (v[k] > 0) & (np.sqrt(v[k] / c2) < 100 * 1e-8)
+        assert not np.any(off & ~near_eps), (k, float(diff[off & ~near_eps].max()))
+        assert np.all(diff[off] <= 2 * lr_sum), k
+        n_cond += int(off.sum())
+    assert n_cond <= math.ceil(1e-5 * sum(x.size for x in want.values()))
+    return n_cond
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -153,25 +189,55 @@ def test_forward_loss_serve_and_grads_match_jax(arch):
 def test_retrieval_step_matches_jax(arch):
     rcfg, tcfg, params, model = _carried(arch)
     rng = np.random.default_rng(2)
-    dense = rng.normal(size=(1, rcfg.n_dense)).astype(np.float32)
-    sparse = rng.integers(0, rcfg.rows_per_field, (1, rcfg.n_sparse)).astype(np.int32)
-    cand = rng.integers(0, rcfg.rows_per_field, 64).astype(np.int32)
-    got = T.retrieval_step(model, {"dense": torch.from_numpy(dense),
-                                   "sparse": torch.from_numpy(sparse),
-                                   "candidates": torch.from_numpy(cand)}, tcfg)
-    want = R.retrieval_step(params, {"dense": jnp.asarray(dense),
-                                     "sparse": jnp.asarray(sparse),
-                                     "candidates": jnp.asarray(cand)}, rcfg)
+    if rcfg.kind in ("dcn", "dlrm"):
+        user = {"dense": rng.normal(size=(1, rcfg.n_dense)).astype(np.float32),
+                "sparse": rng.integers(0, rcfg.rows_per_field,
+                                       (1, rcfg.n_sparse)).astype(np.int32)}
+        vocab = rcfg.rows_per_field
+    else:  # a user's history, partly masked; the candidate is the target
+        user = {"history": rng.integers(0, rcfg.item_vocab,
+                                        (1, rcfg.seq_len)).astype(np.int32),
+                "hist_mask": np.arange(rcfg.seq_len)[None] < rcfg.seq_len // 2}
+        vocab = rcfg.item_vocab
+    user["candidates"] = rng.integers(0, vocab, 64).astype(np.int32)
+    got = T.retrieval_step(model, {k: torch.from_numpy(v) for k, v in user.items()},
+                           tcfg)
+    want = R.retrieval_step(params, {k: jnp.asarray(v) for k, v in user.items()}, rcfg)
     assert got.shape == (64,)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-7)
 
 
-def test_sequential_kinds_wait_for_their_slice():
-    cfg = dataclasses.replace(get_arch("dcn-v2").smoke, kind="din")
+# sha256 over (name, f32 bytes) of every leaf of init_model(smoke, seed 0) on
+# the CPU, as the DCN-v2 / DLRM-only module drew them before DIN and BST
+# came: adding the sequential kinds must not move a dcn/dlrm draw
+PARENT_INIT_SHA256 = {
+    "dcn-v2": "6adcd08b228e9173d0f5eb415e6ebb60850f84b03ab0585afaccf5bae7198f55",
+    "dlrm-rm2": "cae7092b03d6cc325424076306eb5b4fc58304cebecb253bb75d5ceee221dbd4",
+}
+
+
+@pytest.mark.parametrize("arch", sorted(PARENT_INIT_SHA256))
+def test_dcn_and_dlrm_init_from_seed_0_is_unchanged(arch):
+    h = hashlib.sha256()
+    for k, p in param_dict(T.init_model(get_arch(arch).smoke, 0, "cpu")).items():
+        h.update(k.encode())
+        h.update(p.detach().numpy().tobytes())
+    assert h.hexdigest() == PARENT_INIT_SHA256[arch]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gin-tu"])
+def test_lm_and_gnn_archs_wait_for_their_slice(arch):
+    from repro_torch.launch.train import build_training
+
     with pytest.raises(NotImplementedError, match="Queue A 7"):
-        T.init_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
-        cfg.param_count()
+        build_training(arch, smoke=True, batch=4, device="cpu")
+
+
+def test_full_sequential_counts():
+    assert get_arch("din").full.param_count() == 37_785_017
+    assert get_arch("bst").full.param_count() == 68_467_424
+    assert get_arch("din").full.param_count() == ref_get_arch("din").full.param_count()
+    assert get_arch("bst").full.param_count() == ref_get_arch("bst").full.param_count()
 
 
 def test_optimizer_pieces_match_the_reference():
@@ -210,18 +276,21 @@ def test_train_steps_match_the_jitted_jax_step(arch):
     rstep = jax.jit(ref_make_train_step(R.loss_fn, rcfg, base_lr=1e-2))
     tstep = make_train_step(T.loss_fn, tcfg, base_lr=1e-2)
     ropt, topt = radamw.adamw_init(params), tadamw.adamw_init(param_dict(model))
+    lr_sum = 0.0
     for s in range(4):  # one step, then three more
         b, tb = _batch(np.random.default_rng(10 + s), rcfg, 16)
         params, ropt, rm = rstep(params, ropt, b)
         _, topt, tm = tstep(model, topt, tb)
+        lr_sum += float(radamw.cosine_lr(jnp.int32(s + 1), 1e-2, 10, 100_000))
         np.testing.assert_allclose(float(tm["loss"]), float(rm["loss"]), rtol=1e-5)
         np.testing.assert_allclose(float(tm["grad_norm"]), float(rm["grad_norm"]), rtol=1e-5)
-        _assert_params_close(model, params, atol=1e-5, rtol=1e-4)
+        _assert_params_close(model, params, atol=1e-5, rtol=1e-4,
+                             adam=(ropt, lr_sum) if arch == "bst" else None)
     assert topt["count"] == int(ropt["count"]) == 4
 
 
 def test_data_pipeline_equals_the_reference():
-    for arch in ARCHS:
+    for arch in ARCHS:  # dense/sparse batches, and history/mask/target ones
         cfg = get_arch(arch).smoke
         got = tdata.make_ctr_batch(np.random.default_rng(4), cfg, 64)
         want = rdata.make_ctr_batch(np.random.default_rng(4), ref_get_arch(arch).smoke, 64)
