@@ -44,6 +44,48 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    two whose measured memory fits the card (the cut printed), its first
    256 scores held to the CPU's (one ``recsys seq:`` line an arch).  The
    phase prints the seconds of each piece;
+3c. lm       -- ``models/transformer.py`` at full width, TF32 off and
+   bf16 reduced-precision reductions off (every run here is held against
+   the CPU or another path): (a) qwen3-0.6b's whole FULL config (28
+   layers, 751,632,384 parameters): under deterministic algorithms, the
+   ``FaultTolerantRunner`` run of ``launch.train.build_training`` at
+   ``train_4k``'s 4,096 tokens and ``LM_RESTART_BATCH`` sequences (a
+   checkpoint every 2 steps, on ``/dev/shm`` where it is writable, a
+   failure at step 3) ends bit-equal to an unbroken run; then the batch
+   that fits is the largest power of two whose predicted peak fits 85%
+   of the free memory (cut from 256; the forward and backward measured
+   at 1 and 2 sequences, AdamW's update at 1), and the steps run at it or
+   at ``LM_BATCH_CAP`` (8) if smaller, for the run's time limit: 1 + 5
+   timed steps and 2 traced, the device's activity alone (one ``lm
+   train:`` line: step p50/p99, tokens/s,
+   peak memory, device busy share and top device ops, mfu as
+   6 x active parameters x tokens against the dense bf16 peak); the
+   logits of a 256-token prompt held to a CPU forward, chunked attention
+   to full at 2,048 tokens, and decode from a prefill of 1,984 tokens to
+   ``prefill_step`` of 2,048, each at bf16 (relative L2
+   ``LM_BF16_REL``) and f32 (``LM_F32_REL``); a prefill at
+   ``prefill_32k``'s 32,768 tokens (batch cut from 32 to 1), and 32
+   decode steps on ``decode_32k``'s 32,768-slot cache filled from a
+   prefill of 31,744 tokens, its batch the largest power of two whose
+   measured memory fits 95% of the card (cut from 128; one ``lm
+   serve:`` line); (b) moonshot-v1-16b-a3b at full width, its depth the
+   most layers whose training peak, measured at 1 and 2 layers, fits 85%
+   of the free memory: 3 train steps at 4,096 tokens, every expert of
+   every layer fed gradient by uniform tokens (the reference's
+   ``test_moe_routes_and_trains``), the logits of a 256-token prompt held
+   to a CPU forward, a prefill of 4,096 tokens and 8 decode steps held to
+   a prefill of all of them (at a capacity that drops no token: a
+   prefill drops, a decode step never does); (c) mixtral-8x22b at full
+   width, serve only, its depth from the measured serving peak: a
+   prefill of 8,192 tokens (two windows, so the ring lines up) and 64
+   decode steps through the ring, and a decode from one window to 4,160
+   tokens held to the card's prefill of them; (d) the five LM archs'
+   smoke configs from one init on the card and on the CPU: a prefill
+   and 20 decode steps (past the smoke window) held to each other, 3
+   launcher steps with losses within rtol 2e-3; (e)
+   ``examples.train_lm.run(40)`` on the card: one restart, the last
+   losses below the first.  Every cut is printed in the ``lm reduced:``
+   line; the phase prints its seconds against its budget of 180 s;
 4. boolean  -- ``repro_torch.launch.serve`` over the full-size corpus
    (``--n-lists 256 --min-len 10000 --max-len 2000000 --seed 0 --codec
    auto``: 104.55 M postings), then a few batches through an engine over
@@ -94,8 +136,9 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    arrived and sustained q/s, request p50/p99/p99.9 from the scheduled
    arrival, waves, shed, expired);
 6c. shards  -- sharded serving over phase 4's and phase 6's indexes and
-   their first 192 queries (no corpus is built again; 256 before the
-   recsys phase grew, a depth cut it prints), with the launch
+   their first 128 queries (no corpus is built again; 256 before the
+   recsys phase grew, 192 before the LM phase came, a depth cut it
+   prints), with the launch
    counts set to 0 just before each run and read just after
    (``decode_search`` on the boolean runs, ``bm25_score_probe`` and
    ``pivot_select`` on the ranked ones must have launched): (a) ``serve
@@ -204,11 +247,13 @@ LOOP_DEADLINE_X = 3.0
 LOOP_EXPIRE_X = 0.5
 LOOP_KERNELS = ("pivot_select", "pivot_score", "bm25_score_rows")
 # phase 6c, sharded serving: SHARDS shards, SHARD_QUERIES queries a run (of
-# phase 4's and phase 6's: three batches, one of them the fault's; the depth
-# a run serves, cut before the phase budget is: 256 until the recsys phase
-# took DIN, BST and the sparse step), and the phase's budget in seconds
+# phase 4's and phase 6's: two batches, the second the fault's, which a
+# synchronous recovery or a failover serves whole; the depth a run serves,
+# cut before the phase budget is: 256 until the recsys phase took DIN, BST
+# and the sparse step, 192 until the LM phase came), and the phase's budget
+# in seconds
 SHARDS = 4
-SHARD_QUERIES = 192
+SHARD_QUERIES = 128
 SHARD_PHASE_S = 180.0
 LIBS = ["vbyte_decode", "ef_search", "bm25_score", "blockmax_pivot",
         "pivot_score", "gain_scan", "partition_scan", "embedding_bag"]
@@ -315,6 +360,52 @@ DEVICE_LIST_PROBES = 1024  # phase 4's NextGEQ probes through DeviceList
 # H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet): the
 # trainer's matmuls run in full f32, TF32 off
 F32_PEAK = 67e12
+# H100 SXM dense bf16 rate (NVIDIA data sheet, 700 W): the LM's mfu
+BF16_PEAK = 989e12
+# phase 3c, the LM family (models/transformer.py) at full width: qwen3-0.6b
+# trained at train_4k's sequence length, its batch the largest power of two
+# whose peak (forward and backward measured at LM_PROBE_BATCHES sequences,
+# AdamW's update at the first) fits LM_MEM_SHARE of the free memory, timed
+# at no more than LM_BATCH_CAP (the run's time limit); 1 + 5 timed steps,
+# 2 traced; the restart
+# check at LM_RESTART_BATCH; prefill at prefill_32k's length; decode on
+# decode_32k's cache from a prefill of LM_DECODE_PREFILL tokens, its batch
+# the largest power of two whose measured memory fits LM_DECODE_MEM_SHARE
+# (the cache is allocated once and does not grow)
+LM_ARCH = "qwen3-0.6b"
+LM_PROBE_BATCHES = (1, 2)
+LM_BATCH_CAP = 8
+LM_MEM_SHARE = 0.85
+LM_DECODE_MEM_SHARE = 0.95
+LM_WARMUP = 1
+LM_STEPS = 5
+LM_PROFILE = 2
+LM_RESTART_BATCH = 1
+LM_RESTART_STEPS = 4
+LM_SAVE_EVERY = 2
+LM_FAIL_AT = 3
+LM_CHECK_TOKENS = 256  # a prompt whose logits are held to a CPU forward
+LM_CHUNK_CHECK = 2048  # chunked attention held to full attention
+LM_HOLD_PREFILL, LM_HOLD_LEN = 1984, 2048  # decode held to a prefill
+LM_DECODE_PREFILL = 31 * 1024
+LM_DECODE_STEPS = 32
+# the held tolerances: at bf16 (the config) each op rounds to 8 bits and
+# the card's matmuls sum in another order than the CPU's (or than the other
+# path's), so logits and hidden states are held to a relative L2 error of
+# LM_BF16_REL (a few ulps of drift); at f32 (TF32 off) to LM_F32_REL.  An
+# MoE is held at f32 only: at bf16 those ulps flip a router's near-tie
+# between the two sides, which sends a token to another expert and moves
+# its logits by a whole expert's output (its bf16 errors are printed)
+LM_BF16_REL = 1e-2
+LM_F32_REL = 1e-4
+# moonshot and mixtral at full width: depth from measured memory
+MOONSHOT_ARCH, MOONSHOT_STEPS, MOONSHOT_DECODE = "moonshot-v1-16b-a3b", 3, 8
+MOE_CHECK_SEQ = 16  # the reference test's sequence length
+MIXTRAL_ARCH, MIXTRAL_PREFILL, MIXTRAL_DECODE = "mixtral-8x22b", 8192, 64
+MIXTRAL_HOLD = 4096  # decode from here past the window, held to a prefill
+LM_SMOKE_BATCH, LM_SMOKE_SEQ, LM_SMOKE_DECODE = 4, 32, 20
+LM_EXAMPLE_STEPS = 40
+LM_PHASE_S = 180.0
 DEVICE = "cuda"
 
 
@@ -585,10 +676,12 @@ def profile_batches(torch, serve_batch, queries, card, label) -> dict:
                          card, label, "batches")
 
 
-def profile_calls(torch, calls, card, label, unit) -> dict:
+def profile_calls(torch, calls, card, label, unit, timing=None, cpu=True) -> dict:
     """Device time per kernel from ``torch.profiler`` against the wall time
     of ``calls``, and the host spans of ``repro_torch.obs``; returns the
-    device ms by name."""
+    device ms by name (and puts the wall and busy ms into ``timing``).
+    ``cpu=False`` records the device's activity alone (the host's ops are
+    not read here; a trace of many of them takes long to process)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -596,7 +689,8 @@ def profile_calls(torch, calls, card, label, unit) -> dict:
 
     obs.reset()
     obs.enable()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for call in calls:
             call()
@@ -612,6 +706,8 @@ def profile_calls(torch, calls, card, label, unit) -> dict:
             dev[name] = dev.get(name, 0.0) + ev.self_device_time_total / 1e3
     spans = span_ms()
     busy = sum(dev.values())
+    if timing is not None:
+        timing.update(wall_ms=wall_ms, busy_ms=busy)
     top = dict(sorted(dev.items(), key=lambda kv: -kv[1])[:8])
     print(f"[chip_smoke] {label} profile over {len(calls)} {unit}: wall "
           f"{wall_ms:.1f} ms, device busy {busy:.2f} ms "
@@ -1188,8 +1284,9 @@ def run_shard_path(res, rres, torch, serve, counters, card):
     ranked_qps = qps_of(lambda b: rres["engine"].topk_batch(b, TOPK),
                         rqueries)
     print(f"[chip_smoke] depth cut: phase 6c serves {SHARD_QUERIES} queries "
-          "a run, not 256, to make room for the recsys "
-          "phase's sequential archs and sparse step", flush=True)
+          "a run, not 256 (192 until the LM phase), to make room for the "
+          "recsys phase's sequential archs and sparse step and for the LM "
+          "phase", flush=True)
     print(f"[chip_smoke] shard path: the unsharded engines on the same "
           f"{len(queries)} queries: boolean {bool_qps:.2f} q/s, ranked "
           f"{ranked_qps:.2f} q/s [{card}]", flush=True)
@@ -2566,6 +2663,707 @@ def run_seq_arch(torch, arch, card):
     return line
 
 
+def free_bytes(torch) -> int:
+    """The card's free bytes once Python's reference cycles are collected
+    and the caching allocator has let go of its cached blocks."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info()[0]
+
+
+def rel_l2(got, want) -> float:
+    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def hold(torch, out: dict, name: str, got, want, bound: float, gate=True) -> None:
+    """Hold ``got`` (on the card) to ``want`` within a relative L2 error of
+    ``bound``, both finite and of one shape; the result goes into ``out``.
+    With ``gate`` False the error is recorded and not held (an MoE at
+    bf16, see ``LM_BF16_REL``); the shapes and finiteness still are."""
+    r = rel_l2(got, want)
+    mx = float((got.detach().float().cpu() - want.detach().float().cpu()).abs().max())
+    out[name] = {"rel_l2": r, "max_abs_diff": mx, "bound": bound if gate else None}
+    if (got.shape != want.shape or not bool(torch.isfinite(got).all())
+            or (gate and r > bound)):
+        fail(f"lm: {name}: relative L2 {r:.3e} (max |diff| {mx:.3e}) against "
+             f"its bound {bound:g}, shapes {tuple(got.shape)} {tuple(want.shape)}")
+
+
+def lm_tokens(cfg, n: int, seed: int = 1):
+    """``n`` tokens of the LM pipeline's stream (``TokenStream``) as a [1, n]
+    tensor on the card."""
+    import torch
+
+    from repro_torch.data.lm_data import TokenStream
+
+    toks = TokenStream(cfg.vocab, n, seed=seed).tokens
+    return torch.from_numpy(toks.astype(np.int64))[None].to(DEVICE)
+
+
+def lm_logits(torch, model, tok, cfg):
+    """The last hidden states of ``forward`` through the head, in f32."""
+    from repro_torch.models import transformer as T
+
+    with torch.no_grad():
+        h, _ = T.forward(model, tok, cfg)
+        return (h @ model.lm_head.to(cfg.compute_dtype)).float()
+
+
+def hold_cpu_logits(torch, model, cfg, tok, out, label) -> None:
+    """The card's logits of a prompt held to a CPU forward of the same
+    parameters, at the config's bf16 (recorded only for an MoE) and at
+    f32."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+
+    host = T.Transformer(cfg, {
+        "embed": model.embed.detach().cpu(), "final_ln": model.final_ln.detach().cpu(),
+        "lm_head": model.lm_head.detach().cpu(),
+        "layers": {n: p.detach().cpu() for n, p in model.layers.named_parameters()}})
+    for dt, bound in ((torch.bfloat16, LM_BF16_REL), (torch.float32, LM_F32_REL)):
+        c = dataclasses.replace(cfg, compute_dtype=dt)
+        got = lm_logits(torch, model, tok, c)
+        want = lm_logits(torch, host, tok.cpu(), c)
+        hold(torch, out, f"{label}_cpu_logits_{str(dt)[6:]}", got, want, bound,
+             gate=not cfg.is_moe or dt == torch.float32)
+    del host
+
+
+def decode_from(torch, model, cfg, tok, start: int, total: int):
+    """Logits after teacher-forcing ``tok[:, start:total]`` through
+    ``serve_step`` on a ``total``-slot cache filled by ``prefill_step`` of
+    ``tok[:, :start]``; and each step's ms."""
+    from repro_torch.models import transformer as T
+
+    _, pc = T.prefill_step(model, tok[:, :start], cfg)
+    cache = T.init_cache(cfg, tok.shape[0], total, DEVICE)
+    cache[:, :, :, :pc.shape[3]] = pc
+    del pc
+    ms = []
+    for i in range(start, total):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = T.serve_step(model, cache, tok[:, i], i, cfg)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return lg, ms
+
+
+def lm_restart(torch, S: int, card) -> dict:
+    """qwen3-0.6b's restart check at full width: under deterministic
+    algorithms, LM_RESTART_STEPS steps through ``FaultTolerantRunner`` (a
+    checkpoint every LM_SAVE_EVERY, a failure at LM_FAIL_AT) end bit-equal
+    to the same steps without it: parameters, both AdamW moments, step
+    count; the replayed step's loss equals its first pass."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import FaultTolerantRunner, SimulatedFailure
+    from repro_torch.launch.train import build_training, named_leaves
+
+    made = {}
+    losses = []
+    # a tmpfs where there is one: each checkpoint holds 9 GB of state
+    shm = "/dev/shm"
+    ckpt = tempfile.mkdtemp(prefix="chip-smoke-lm-",
+                            dir=shm if os.access(shm, os.W_OK) else None)
+    torch.use_deterministic_algorithms(True)
+    try:
+        state, step, batches, cfg = build_training(LM_ARCH, False, LM_RESTART_BATCH,
+                                                   S, device=DEVICE)
+
+        def cached(s):
+            if s not in made:
+                made[s] = batches(s)
+            return made[s]
+
+        def logged(st, b):
+            st, m = step(st, b)
+            losses.append(float(m["loss"]))
+            return st, m
+
+        t0 = time.perf_counter()
+        unbroken = state
+        for s in range(LM_RESTART_STEPS):
+            unbroken, _ = step(unbroken, cached(s))
+        torch.cuda.synchronize()
+        unbroken_s = time.perf_counter() - t0
+        state, *_ = build_training(LM_ARCH, False, LM_RESTART_BATCH, S, device=DEVICE)
+        runner = FaultTolerantRunner(logged, CheckpointManager(ckpt, keep=2),
+                                     save_every=LM_SAVE_EVERY)
+        t0 = time.perf_counter()
+        restarted = runner.run(state, cached, LM_RESTART_STEPS,
+                               failure=SimulatedFailure(at_steps=(LM_FAIL_AT,)))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    stats = runner.stats
+    if stats.restarts != 1 or stats.steps_completed != LM_RESTART_STEPS + stats.wasted_steps:
+        fail(f"lm restart: run statistics {stats}, not one restart")
+    if not np.isfinite(losses).all():
+        fail(f"lm restart: a loss is not finite: {losses}")
+    at = LM_FAIL_AT - stats.wasted_steps
+    if losses[at] != losses[LM_FAIL_AT]:
+        fail(f"lm restart: the replayed step {at} lost {losses[LM_FAIL_AT]}, its "
+             f"first pass {losses[at]}")
+    if not int(unbroken[1]["count"]) == int(restarted[1]["count"]) == LM_RESTART_STEPS:
+        fail(f"lm restart: step counts {unbroken[1]['count']} and {restarted[1]['count']}")
+
+    def tensors(st):
+        return named_leaves({"params": st[0], "m": st[1]["m"], "v": st[1]["v"]})
+
+    want, got = tensors(unbroken), tensors(restarted)
+    if not all(t.device.type == torch.device(DEVICE).type for t in got.values()):
+        fail("lm restart: a restored leaf is not on the card")
+    n_off = sum(int((got[k] != w).sum()) for k, w in want.items())
+    n = sum(w.numel() for w in want.values())
+    print(f"[chip_smoke] lm restart, deterministic algorithms, batch "
+          f"{LM_RESTART_BATCH} x {S}: the replayed step {at}'s loss equals its "
+          f"first pass; {n_off} of {n:,} elements (parameters and AdamW "
+          f"moments) differ from an unbroken run's; {run_s:.1f}s with the "
+          f"restart and {stats.steps_completed} steps, {unbroken_s:.1f}s for "
+          f"the {LM_RESTART_STEPS} unbroken steps [{card}]", flush=True)
+    if n_off:
+        fail(f"lm restart: {n_off} elements off an unbroken run's")
+    return {"restart_batch": LM_RESTART_BATCH, "restart_steps": LM_RESTART_STEPS,
+            "save_every": LM_SAVE_EVERY, "fail_at": LM_FAIL_AT,
+            "run_stats": stats.as_dict(), "restart_run_losses": losses,
+            "restart_run_s": run_s, "restart_elements_off": n_off,
+            "elements_compared": n}
+
+
+def lm_train_batch(torch, S: int, want: int) -> tuple[int, dict]:
+    """The train batch: the largest power of two up to ``want`` whose
+    predicted peak fits LM_MEM_SHARE of the free memory, and at most
+    LM_BATCH_CAP.  A step's peak is the larger of its forward and backward
+    (measured at each of LM_PROBE_BATCHES sequences, linear in the batch)
+    and AdamW's update (measured by a whole step at the first: its
+    temporaries do not grow with the batch)."""
+    from repro_torch.launch.train import build_training
+    from repro_torch.models import transformer as T
+
+    peaks = {}
+    for i, b in enumerate(LM_PROBE_BATCHES):
+        free_bytes(torch)
+        state, step, batches, cfg = build_training(LM_ARCH, False, b, S, device=DEVICE)
+        bt = batches(0)
+        model = T.Transformer(cfg, state[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        torch.autograd.grad(T.loss_fn(model, bt, cfg), list(model.parameters()))
+        torch.cuda.synchronize()
+        peaks[b] = torch.cuda.max_memory_allocated()
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+            state, m = step(state, bt)
+            float(m["loss"])
+            step_peak = torch.cuda.max_memory_allocated()
+            del m
+        del state, step, batches, bt, model
+    free = free_bytes(torch)
+    b0, b1 = LM_PROBE_BATCHES
+    per = (peaks[b1] - peaks[b0]) / (b1 - b0)
+    fixed = peaks[b0] - b0 * per
+
+    def predicted(b):
+        return max(fixed + per * b, step_peak)
+
+    fits = 1
+    while 2 * fits <= want and predicted(2 * fits) <= LM_MEM_SHARE * free:
+        fits *= 2
+    return fits, {"probe_fwd_bwd_peaks": peaks, "probe_step_peak": step_peak,
+                  "bytes_per_sequence": per, "fixed_bytes": fixed,
+                  "free_bytes": free, "batch_that_fits": fits,
+                  "predicted_peak": predicted(min(fits, LM_BATCH_CAP))}
+
+
+def run_lm_qwen3(torch, card, reduced: list) -> dict:
+    """Phase 3c (a): qwen3-0.6b's whole FULL config trained, restarted,
+    prefilled and decoded on the card, and held at full width."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import build_training
+    from repro_torch.models import transformer as T
+
+    bundle = get_arch(LM_ARCH)
+    shapes = {s.name: s for s in bundle.shapes}
+    S = shapes["train_4k"].seq_len
+    t0 = time.perf_counter()
+    line = lm_restart(torch, S, card)
+    restart_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fits, probe = lm_train_batch(torch, S, shapes["train_4k"].batch)
+    probe_s = time.perf_counter() - t0
+    B = min(fits, LM_BATCH_CAP)
+    reduced.append({"what": f"{LM_ARCH} train_4k batch", "was": shapes["train_4k"].batch,
+                    "is": fits, "why": f"the largest power of two whose peak, measured "
+                    f"at {LM_PROBE_BATCHES} sequences, fits {LM_MEM_SHARE:.0%} of "
+                    f"the card's free memory"})
+    if B < fits:
+        reduced.append({"what": f"{LM_ARCH} timed train batch", "was": fits, "is": B,
+                        "why": "the run's time limit: a step takes ~0.65 s a "
+                        "sequence of 4,096 tokens (f32 attention, TF32 off), so "
+                        "the 8 steps at the batch that fits take ~80 s"})
+    reduced.append({"what": f"{LM_ARCH} restart check batch", "was": B,
+                    "is": LM_RESTART_BATCH, "why": "the check is of the state "
+                    "(12 GB at any batch); a step at batch 1 takes ~1 s"})
+    free_bytes(torch)
+    t0 = time.perf_counter()
+    state, step, batches, cfg = build_training(LM_ARCH, False, B, S, device=DEVICE)
+    if not (cfg == bundle.full
+            and state[0]["embed"].device.type == torch.device(DEVICE).type):
+        fail("lm train: not the full config on the card")
+    n_steps = LM_WARMUP + LM_STEPS
+    bts = [batches(s) for s in range(n_steps + LM_PROFILE)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for b in bts[:n_steps]:
+        t1 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(losses).all():
+        fail(f"lm train: a loss is not finite: {losses}")
+    holder = [state]
+
+    def traced(b):
+        holder[0], m = step(holder[0], b)
+        losses.append(float(m["loss"]))
+
+    timing = {}
+    prof = profile_calls(torch, [lambda b=b: traced(b) for b in bts[n_steps:]], card,
+                         "lm train", "steps", timing, cpu=False)
+    params = holder[0][0]
+    del state, holder, step, bts, m
+    free_bytes(torch)
+    timed = step_ms[LM_WARMUP:]
+    p50 = float(np.percentile(timed, 50))
+    tokens = B * S
+    line.update({
+        "config": cfg.name, "params": cfg.param_count(),
+        "active_params": cfg.active_param_count(), "batch": B, "seq_len": S,
+        "warmup_steps": LM_WARMUP, "steps": LM_STEPS, "step_ms": timed,
+        "step_p50_ms": p50, "step_p99_ms": float(np.percentile(timed, 99)),
+        "tokens_per_s": tokens / (p50 / 1e3), "losses": losses,
+        "max_memory_allocated": peak, **probe,
+        "traced_steps": LM_PROFILE, "traced_wall_ms": timing["wall_ms"],
+        "device_busy_ms": timing["busy_ms"],
+        "device_busy_share": timing["busy_ms"] / timing["wall_ms"],
+        "top_device_ms": {k: round(v, 3) for k, v in sorted(
+            prof.items(), key=lambda kv: -kv[1])[:8]},
+        "mfu": 6.0 * cfg.active_param_count() * tokens / (p50 / 1e3) / BF16_PEAK,
+        "mfu_peak_flops": BF16_PEAK, "restart_piece_s": restart_s,
+        "probe_piece_s": probe_s, "train_piece_s": time.perf_counter() - t0,
+        "card": card,
+    })
+    print(f"[chip_smoke] lm train: {json.dumps(line)}", flush=True)
+
+    # held at full width: logits of a prompt against a CPU forward, the
+    # chunked path against the full one, decode against prefill
+    model = T.Transformer(cfg, params)
+    held = {}
+    tok = lm_tokens(cfg, shapes["prefill_32k"].seq_len)
+    t0 = time.perf_counter()
+    hold_cpu_logits(torch, model, cfg, tok[:, :LM_CHECK_TOKENS], held, LM_ARCH)
+    cpu_hold_s = time.perf_counter() - t0
+    for dt, bound in ((torch.bfloat16, LM_BF16_REL), (torch.float32, LM_F32_REL)):
+        c = dataclasses.replace(cfg, compute_dtype=dt)
+        if not (LM_CHUNK_CHECK > c.attn_chunk and LM_CHUNK_CHECK % c.attn_chunk == 0):
+            fail("lm: the chunk check does not take the chunked path")
+        with torch.no_grad():
+            hc, _ = T.forward(model, tok[:, :LM_CHUNK_CHECK], c)
+            hf, _ = T.forward(model, tok[:, :LM_CHUNK_CHECK],
+                              dataclasses.replace(c, attn_chunk=2 * LM_CHUNK_CHECK))
+        hold(torch, held, f"chunked_vs_full_{str(dt)[6:]}", hc, hf, bound)
+        want, _ = T.prefill_step(model, tok[:, :LM_HOLD_LEN], c)
+        got, _ = decode_from(torch, model, c, tok, LM_HOLD_PREFILL, LM_HOLD_LEN)
+        hold(torch, held, f"decode_vs_prefill_{str(dt)[6:]}", got, want, bound)
+    del hc, hf
+
+    holds_s = time.perf_counter() - t0
+    # prefill at prefill_32k's length, batch 1
+    Sp = shapes["prefill_32k"].seq_len
+    free_bytes(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    lg, cache = T.prefill_step(model, tok, cfg)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    prefill_peak = torch.cuda.max_memory_allocated()
+    if lg.shape != (1, cfg.vocab) or not bool(torch.isfinite(lg).all()):
+        fail("lm prefill: the logits are not finite or not [1, vocab]")
+    del lg, cache
+    reduced.append({"what": f"{LM_ARCH} prefill_32k batch",
+                    "was": shapes["prefill_32k"].batch, "is": 1,
+                    "why": "one sequence times the chunked path at its length"})
+
+    # decode on decode_32k's cache, filled from a prefill of LM_DECODE_PREFILL
+    t0 = time.perf_counter()
+    Sd, want_b = shapes["decode_32k"].seq_len, shapes["decode_32k"].batch
+    _, pc = T.prefill_step(model, tok[:, :LM_DECODE_PREFILL], cfg)
+    rng = np.random.default_rng(2)
+
+    def decode_peak(b):
+        c = T.init_cache(cfg, b, Sd, DEVICE)
+        c[:, :, :, :LM_DECODE_PREFILL] = pc
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        T.serve_step(model, c, torch.zeros(b, dtype=torch.long, device=DEVICE),
+                     LM_DECODE_PREFILL, cfg)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated()
+
+    p1 = decode_peak(1)
+    per = decode_peak(2) - p1
+    room = LM_DECODE_MEM_SHARE * (free_bytes(torch) + torch.cuda.memory_allocated())
+    Bd = 1
+    while 2 * Bd <= want_b and p1 + per * (2 * Bd - 1) <= room:
+        Bd *= 2
+    reduced.append({"what": f"{LM_ARCH} decode_32k batch", "was": want_b, "is": Bd,
+                    "why": f"the largest power of two whose measured memory "
+                    f"({per / 1e9:.2f} GB a sequence) fits "
+                    f"{LM_DECODE_MEM_SHARE:.0%} of the card"})
+    cache = T.init_cache(cfg, Bd, Sd, DEVICE)
+    cache[:, :, :, :LM_DECODE_PREFILL] = pc
+    del pc
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (LM_DECODE_STEPS, Bd))).to(DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dec_ms = []
+    for i in range(LM_DECODE_STEPS):
+        t1 = time.perf_counter()
+        lg, cache = T.serve_step(model, cache, toks[i], LM_DECODE_PREFILL + i, cfg)
+        torch.cuda.synchronize()
+        dec_ms.append((time.perf_counter() - t1) * 1e3)
+    dec_peak = torch.cuda.max_memory_allocated()
+    if lg.shape != (Bd, cfg.vocab) or not bool(torch.isfinite(lg).all()):
+        fail("lm decode: the logits are not finite or not [batch, vocab]")
+    cache_bytes = cache.numel() * cache.element_size()
+    del cache, lg, model, params
+    free_bytes(torch)
+    d50 = float(np.percentile(dec_ms, 50))
+    serve = {
+        "config": cfg.name, "prefill_tokens": Sp, "prefill_ms": prefill_s * 1e3,
+        "prefill_tokens_per_s": Sp / prefill_s, "prefill_max_memory_allocated": prefill_peak,
+        "decode_batch": Bd, "decode_cache_slots": Sd,
+        "decode_prefill_tokens": LM_DECODE_PREFILL, "decode_steps": LM_DECODE_STEPS,
+        "decode_cache_bytes": cache_bytes, "decode_step_ms": dec_ms,
+        "decode_ms_per_token_p50": d50,
+        "decode_ms_per_token_p99": float(np.percentile(dec_ms, 99)),
+        "decode_tokens_per_s": Bd / (d50 / 1e3), "decode_max_memory_allocated": dec_peak,
+        "held": held, "cpu_hold_s": cpu_hold_s, "holds_piece_s": holds_s,
+        "decode_piece_s": time.perf_counter() - t0, "card": card,
+    }
+    print(f"[chip_smoke] lm serve: {json.dumps(serve)}", flush=True)
+    return {"train": line, "serve": serve}
+
+
+def no_drop(cfg):
+    """``cfg`` with a capacity of every token of a group (capacity_factor
+    E / k): a prefill of T tokens drops those over its capacity, a decode
+    step of one token never does, so decode equals prefill only where
+    nothing is dropped."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def lm_depth(torch, full, probe, share=LM_MEM_SHARE) -> tuple[int, dict]:
+    """The most layers of ``full`` (at its width) whose peak fits ``share``
+    of the free memory, from ``probe(cfg)`` (which returns its peak) at 1
+    and 2 layers."""
+    import dataclasses
+
+    peaks = {}
+    for L in (1, 2):
+        free_bytes(torch)
+        peaks[L] = probe(dataclasses.replace(full, n_layers=L))
+    free = free_bytes(torch)
+    per = peaks[2] - peaks[1]
+    L = int((share * free - (peaks[1] - per)) // per)
+    if L < 1:
+        fail(f"{full.name}: not one layer fits ({peaks})")
+    return min(L, full.n_layers), {"probe_peaks": peaks, "bytes_per_layer": per,
+                                   "free_bytes": free}
+
+
+def run_lm_moonshot(torch, card, reduced: list) -> dict:
+    """Phase 3c (b): moonshot-v1-16b-a3b at full width, its depth the most
+    layers whose measured training peak fits: train steps at train_4k's
+    length; every expert of every layer receives gradient from uniform
+    tokens in sequences of 16 (the reference's contract, 4,096 tokens; a
+    4,096-token sequence of the Zipf stream starves some experts at this
+    width, and its count is printed beside); prefill and decode, held to a
+    CPU forward and to a prefill."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm_data import ShardedBatchLoader, TokenStream
+    from repro_torch.launch.cells import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import param_dict
+    from repro_torch.optim import adamw_init
+
+    bundle = get_arch(MOONSHOT_ARCH)
+    S = next(s.seq_len for s in bundle.shapes if s.name == "train_4k")
+    loader = ShardedBatchLoader(TokenStream(bundle.full.vocab, S * 64 + 1), 1, S)
+
+    def batch(s):
+        return {k: torch.from_numpy(v).to(DEVICE) for k, v in loader.batch_at(s).items()}
+
+    def setup(cfg):
+        model = T.init_model(cfg, 0, DEVICE)
+        return model, adamw_init(param_dict(model)), make_train_step(T.loss_fn, cfg)
+
+    def probe(cfg):
+        model, opt, step = setup(cfg)
+        b = batch(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, m = step(model, opt, b)
+        float(m["loss"])
+        return torch.cuda.max_memory_allocated()
+
+    L, depth = lm_depth(torch, bundle.full, probe)
+    cfg = dataclasses.replace(bundle.full, n_layers=L)
+    reduced.append({"what": f"{MOONSHOT_ARCH} layers", "was": bundle.full.n_layers,
+                    "is": L, "why": f"the most whose measured training peak "
+                    f"({depth['bytes_per_layer'] / 1e9:.1f} GB a layer) fits "
+                    f"{LM_MEM_SHARE:.0%} of the card"})
+    model, opt, step = setup(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for s in range(MOONSHOT_STEPS):
+        b = batch(s)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, _, m = step(model, opt, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    del opt
+
+    def experts_fed(tok):  # (layer, expert) pairs whose w1 gets gradient
+        loss = T.lm_loss(model, tok, tok, cfg)
+        (g1,) = torch.autograd.grad(loss, [model.layers.w1])  # [L, E, d, ff]
+        return int((g1.abs().sum((2, 3)) > 0).sum())
+
+    # the reference's contract (test_moe_routes_and_trains): uniform tokens
+    # in sequences of its 16, here as many as make train_4k's 4,096 tokens
+    rng = np.random.default_rng(4)
+    fed = experts_fed(torch.from_numpy(
+        rng.integers(0, cfg.vocab, (S // MOE_CHECK_SEQ, MOE_CHECK_SEQ))).to(DEVICE))
+    fed_loader = experts_fed(batch(MOONSHOT_STEPS)["tokens"])
+    if not np.isfinite(losses).all() or fed != L * cfg.n_experts:
+        fail(f"{MOONSHOT_ARCH}: losses {losses}, {fed} of {L * cfg.n_experts} "
+             f"experts received gradient")
+    held = {}
+    tok = lm_tokens(cfg, S + MOONSHOT_DECODE)
+    hold_cpu_logits(torch, model, cfg, tok[:, :LM_CHECK_TOKENS], held, MOONSHOT_ARCH)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    T.prefill_step(model, tok[:, :S], cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t1) * 1e3
+    got, dec_ms = decode_from(torch, model, cfg, tok, S, S + MOONSHOT_DECODE)
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{MOONSHOT_ARCH}: decode logits are not finite")
+    for dt, bound in ((torch.bfloat16, LM_BF16_REL), (torch.float32, LM_F32_REL)):
+        hcfg = no_drop(dataclasses.replace(cfg, compute_dtype=dt))
+        want, _ = T.prefill_step(model, tok, hcfg)
+        got, _ = decode_from(torch, model, hcfg, tok, S, S + MOONSHOT_DECODE)
+        hold(torch, held, f"decode_vs_prefill_{str(dt)[6:]}_no_drop", got, want,
+             bound, gate=dt == torch.float32)
+    del model
+    free_bytes(torch)
+    line = {"config": cfg.name, "layers": L, "params": cfg.param_count(),
+            "active_params": cfg.active_param_count(), "batch": 1, "seq_len": S,
+            "step_ms": step_ms, "losses": losses, "max_memory_allocated": peak,
+            "experts_with_gradient": fed, "experts": L * cfg.n_experts,
+            "experts_with_gradient_loader_batch": fed_loader, **depth,
+            "prefill_tokens": S, "prefill_ms": prefill_ms,
+            "decode_steps": MOONSHOT_DECODE, "decode_step_ms": dec_ms,
+            "held": held, "card": card}
+    print(f"[chip_smoke] lm moonshot: {json.dumps(line)}", flush=True)
+    return line
+
+
+def run_lm_mixtral(torch, card, reduced: list) -> dict:
+    """Phase 3c (c): mixtral-8x22b at full width, serve only, its depth the
+    most layers that fit: a prefill of two whole windows, then decode
+    through the ring past them; a decode from one window held to the
+    card's prefill of the same tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+
+    full = get_arch(MIXTRAL_ARCH).full
+    W = full.sliding_window
+    if MIXTRAL_PREFILL % W or MIXTRAL_HOLD % W:
+        fail("mixtral: the prefills must be whole windows to line up with the ring")
+    hold_len = MIXTRAL_HOLD + MIXTRAL_DECODE
+    tok = lm_tokens(full, MIXTRAL_PREFILL + MIXTRAL_DECODE)
+
+    def probe(cfg):
+        model = T.init_model(cfg, 0, DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        T.prefill_step(model, tok[:, :MIXTRAL_PREFILL], cfg)
+        T.prefill_step(model, tok[:, :hold_len],
+                       no_drop(dataclasses.replace(cfg, compute_dtype=torch.float32)))
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated()
+
+    L, depth = lm_depth(torch, full, probe)
+    cfg = dataclasses.replace(full, n_layers=L)
+    reduced.append({"what": f"{MIXTRAL_ARCH} layers", "was": full.n_layers, "is": L,
+                    "why": f"the most whose measured serving peak "
+                    f"({depth['bytes_per_layer'] / 1e9:.1f} GB a layer) fits "
+                    f"{LM_MEM_SHARE:.0%} of the card"})
+    reduced.append({"what": f"{MIXTRAL_ARCH} shapes", "was": "train, prefill, decode",
+                    "is": "prefill and decode", "why": "serve only: a layer's "
+                    "training state alone is 40 GB"})
+    model = T.init_model(cfg, 0, DEVICE)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    lg, cache = T.prefill_step(model, tok[:, :MIXTRAL_PREFILL], cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t1) * 1e3
+    if cache.shape[3] != W:
+        fail(f"mixtral: the prefill's cache holds {cache.shape[3]} slots, not {W}")
+    dec_ms = []
+    for i in range(MIXTRAL_PREFILL, MIXTRAL_PREFILL + MIXTRAL_DECODE):
+        t1 = time.perf_counter()
+        lg, cache = T.serve_step(model, cache, tok[:, i], i, cfg)
+        torch.cuda.synchronize()
+        dec_ms.append((time.perf_counter() - t1) * 1e3)
+    if not bool(torch.isfinite(lg).all()):
+        fail("mixtral: decode logits are not finite")
+    del cache
+    held = {}
+    for dt, bound in ((torch.bfloat16, LM_BF16_REL), (torch.float32, LM_F32_REL)):
+        hcfg = no_drop(dataclasses.replace(cfg, compute_dtype=dt))
+        want, _ = T.prefill_step(model, tok[:, :hold_len], hcfg)
+        got, _ = decode_from(torch, model, hcfg, tok, MIXTRAL_HOLD, hold_len)
+        hold(torch, held, f"decode_{MIXTRAL_HOLD}_to_{hold_len}_vs_prefill_"
+             f"{str(dt)[6:]}_no_drop", got, want, bound, gate=dt == torch.float32)
+    del model
+    free_bytes(torch)
+    line = {"config": cfg.name, "layers": L, "params": cfg.param_count(),
+            "window": W, **depth, "prefill_tokens": MIXTRAL_PREFILL,
+            "prefill_ms": prefill_ms, "prefill_tokens_per_s": MIXTRAL_PREFILL / (prefill_ms / 1e3),
+            "decode_steps": MIXTRAL_DECODE, "decode_step_ms": dec_ms,
+            "decode_ms_per_token_p50": float(np.percentile(dec_ms, 50)),
+            "held": held, "card": card}
+    print(f"[chip_smoke] lm mixtral: {json.dumps(line)}", flush=True)
+    return line
+
+
+def run_lm_smoke(torch, card) -> dict:
+    """Phase 3c (d): the five LM archs' smoke configs from one init, on the
+    card and on the CPU: a prefill and decode past the window at f32 held
+    to each other (relative L2 LM_F32_REL; at bf16 the MoE archs' routers
+    may break a near-tie apart), then 3 launcher steps (bf16), losses rtol
+    2e-3."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.configs import all_arch_ids, get_arch
+    from repro_torch.launch.train import build_training
+    from repro_torch.models import transformer as T
+
+    out = {}
+    for arch in [a for a in all_arch_ids() if get_arch(a).family == "lm"]:
+        cfg = get_arch(arch).smoke
+        init = convert.lm_params_to_arrays(T.init_model(cfg, 0, "cpu"))
+        tok = np.random.default_rng(3).integers(0, cfg.vocab, (2, LM_SMOKE_SEQ))
+        runs = {}
+        for dev in ("cpu", DEVICE):
+            st, step, batches, _ = build_training(arch, True, LM_SMOKE_BATCH, LM_SMOKE_SEQ,
+                                                  device=dev, params=init)
+            c32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+            model = T.Transformer(c32, st[0])
+            t = torch.from_numpy(tok).to(dev)
+            pl, _ = T.prefill_step(model, t, c32)
+            cache = T.init_cache(c32, 2, LM_SMOKE_DECODE, dev)
+            for i in range(LM_SMOKE_DECODE):
+                dl, cache = T.serve_step(model, cache, t[:, i], i, c32)
+            losses = []
+            for s in range(SMOKE_STEPS):
+                st, m = step(st, batches(s))
+                losses.append(float(m["loss"]))
+            runs[dev] = (pl, dl, losses)
+        held = {}
+        hold(torch, held, "prefill_float32", runs[DEVICE][0], runs["cpu"][0], LM_F32_REL)
+        hold(torch, held, "decode_float32", runs[DEVICE][1], runs["cpu"][1], LM_F32_REL)
+        if not np.allclose(runs[DEVICE][2], runs["cpu"][2], rtol=2e-3, atol=0):
+            fail(f"{arch} smoke steps: card losses {runs[DEVICE][2]} != CPU "
+                 f"{runs['cpu'][2]}")
+        out[arch] = {"losses": runs[DEVICE][2], "cpu_losses": runs["cpu"][2], **held}
+    print(f"[chip_smoke] lm smoke: {json.dumps(out)}", flush=True)
+    return out
+
+
+def run_lm_example(torch, card) -> dict:
+    """Phase 3c (e): ``python -m repro_torch.examples.train_lm --steps 40``
+    on the card: one restart, and the last losses below the first."""
+    from repro_torch.examples import train_lm
+
+    t0 = time.perf_counter()
+    res = train_lm.run(LM_EXAMPLE_STEPS, device=DEVICE)
+    run_s = time.perf_counter() - t0
+    st, losses = res["stats"], res["losses"]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    on_card = res["state"][0]["embed"].device.type == torch.device(DEVICE).type
+    if st.restarts != 1 or not last < first or not on_card:
+        fail(f"train_lm: {st}, first losses {first}, last {last}")
+    line = {"steps": LM_EXAMPLE_STEPS, "run_stats": st.as_dict(),
+            "first5_mean_loss": first, "last5_mean_loss": last, "run_s": run_s,
+            "card": card}
+    print(f"[chip_smoke] lm example: {json.dumps(line)}", flush=True)
+    return line
+
+
+def run_lm_path(torch, card) -> dict:
+    """Phase 3c: the LM family on the card; returns each piece's seconds."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the runs held against the CPU sum bf16 products in f32 throughout
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t_phase = time.perf_counter()
+    reduced, piece_s = [], {}
+    for name, fn in (("qwen3", run_lm_qwen3), ("moonshot", run_lm_moonshot),
+                     ("mixtral", run_lm_mixtral)):
+        t0 = time.perf_counter()
+        fn(torch, card, reduced)
+        piece_s[name] = time.perf_counter() - t0
+    for name, fn in (("smoke", run_lm_smoke), ("example", run_lm_example)):
+        t0 = time.perf_counter()
+        fn(torch, card)
+        piece_s[name] = time.perf_counter() - t0
+    phase_s = time.perf_counter() - t_phase
+    print(f"[chip_smoke] lm reduced: {json.dumps(reduced)}", flush=True)
+    # the budget is the run's time limit shared out, not a correctness
+    # gate: a slow host prints over it, and the depth is cut in the source
+    print(f"[chip_smoke] lm phase: {json.dumps(piece_s)}; {phase_s:.1f}s of "
+          f"its {LM_PHASE_S:.0f}s budget [{card}]", flush=True)
+    return piece_s
+
+
 def bag_edge_cases(torch) -> dict:
     """embedding_bag against its plain version, bit for bit, at the edges
     of its tiling: B = BAG_EDGE_B bags of every K of BAG_EDGE_K over every
@@ -2783,6 +3581,10 @@ def main(argv=None) -> int:
           f"step, DIN and BST took "
           f"{sum(piece_s.values()) - dense_s:.1f}s; phase "
           f"{time.perf_counter()-t_phase:.1f}s", flush=True)
+
+    # 3c. the LM family at full width: qwen3-0.6b whole, moonshot and
+    # mixtral at full width and cut depth, the smoke configs, train_lm
+    run_lm_path(torch, card)
 
     # 4. the boolean path, counted
     counters = {"decode_search": vk.decode_search,

@@ -93,21 +93,23 @@ _END = object()
 def tree_flatten(tree) -> tuple[list, TreeDef]:
     """(leaves, treedef), leaves in jax's order (dict keys sorted)."""
     leaves: list = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node) -> TreeDef:
-        if node is None:
-            return TreeDef("none")
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return TreeDef("dict", keys, [walk(node[k]) for k in keys])
-        if isinstance(node, (list, tuple)):
-            kind = "list" if isinstance(node, list) else "tuple"
-            return TreeDef(kind, (), [walk(c) for c in node])
-        leaves.append(node)
-        return TreeDef("leaf")
 
-    treedef = walk(tree)
-    return leaves, treedef
+def _walk(node, leaves: list) -> TreeDef:
+    # a module-level function, not a recursive closure: a closure that
+    # calls itself is a reference cycle, which would keep ``leaves`` (and
+    # every tensor of the tree, on the card too) alive until a gc pass
+    if node is None:
+        return TreeDef("none")
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return TreeDef("dict", keys, [_walk(node[k], leaves) for k in keys])
+    if isinstance(node, (list, tuple)):
+        kind = "list" if isinstance(node, list) else "tuple"
+        return TreeDef(kind, (), [_walk(c, leaves) for c in node])
+    leaves.append(node)
+    return TreeDef("leaf")
 
 
 def tree_map(fn, tree, *rest):

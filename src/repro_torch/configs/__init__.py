@@ -1,11 +1,12 @@
-"""Architecture registry of the port: the recsys archs ported so far.
+"""Architecture registry of the port: the archs ported so far.
 
 Counterpart of ``repro/configs/__init__.py``.  Each arch module defines an
 ``ArchBundle`` with the full config of the reference, its reduced smoke
 config and its shape set; ``get_arch(id)`` and ``all_arch_ids()`` load
 only the archs the port runs: the four recsys archs (bst, dcn-v2, din,
-dlrm-rm2).  The LM and GNN archs come with later slices (ROADMAP Queue A
-7: A7c, A7d).
+dlrm-rm2) and the five LM archs (command-r-35b, mixtral-8x22b,
+moonshot-v1-16b-a3b, qwen1.5-0.5b, qwen3-0.6b).  The GNN arch (gin-tu)
+comes with a later slice (ROADMAP Queue A 7: A7d).
 """
 
 from __future__ import annotations
@@ -51,8 +52,8 @@ def get_arch(arch_id: str) -> ArchBundle:
     if arch_id not in _REGISTRY:
         raise NotImplementedError(
             f"{arch_id!r} is not one of the port's archs {sorted(_REGISTRY)}: "
-            f"the LM and GNN archs come with later slices of the port "
-            f"(ROADMAP Queue A 7: A7c, A7d)")
+            f"the GNN arch comes with a later slice of the port "
+            f"(ROADMAP Queue A 7: A7d)")
     return _REGISTRY[arch_id]
 
 
@@ -68,8 +69,35 @@ def _load_all() -> None:
     global _LOADED
     if _LOADED:
         return
-    from . import bst, dcn_v2, din, dlrm_rm2  # noqa: F401
+    from . import (  # noqa: F401
+        bst,
+        command_r_35b,
+        dcn_v2,
+        din,
+        dlrm_rm2,
+        mixtral_8x22b,
+        moonshot_v1_16b_a3b,
+        qwen1_5_0_5b,
+        qwen3_0_6b,
+    )
     _LOADED = True
+
+
+# Shared LM shape set (seq_len x global_batch per the assignment).
+def lm_shapes(full_attention_only: bool) -> tuple[ShapeSpec, ...]:
+    long = ShapeSpec("long_500k", "decode", seq_len=524_288, batch=1)
+    if full_attention_only:
+        long = dataclasses.replace(
+            long,
+            skip="pure full-attention arch: 500k decode needs sub-quadratic "
+            "attention (see DESIGN.md section 5)",
+        )
+    return (
+        ShapeSpec("train_4k", "train", seq_len=4_096, batch=256),
+        ShapeSpec("prefill_32k", "prefill", seq_len=32_768, batch=32),
+        ShapeSpec("decode_32k", "decode", seq_len=32_768, batch=128),
+        long,
+    )
 
 
 RECSYS_SHAPES = (

@@ -7,9 +7,10 @@ of ``repro.core.index``), so an index built once by either package is
 served by the other without a rebuild.  The port's own build gives
 byte-identical arrays for the same corpus, so both routes meet.
 
-A recsys model's parameters move the same way: ``recsys_params_to_arrays``
-and ``recsys_params_from_arrays`` turn the port's module into the
-reference's tree of arrays and back.
+A model's parameters move the same way: ``recsys_params_to_arrays`` and
+``recsys_params_from_arrays`` turn the port's recsys module into the
+reference's tree of arrays and back, ``lm_params_to_arrays`` and
+``lm_tree_from_arrays`` an LM's (``models.transformer``).
 """
 
 from __future__ import annotations
@@ -104,4 +105,44 @@ def recsys_params_to_arrays(model) -> dict:
             while len(layers) <= int(i):
                 layers.append({})
             layers[int(i)][leaf] = x
+    return tree
+
+
+def lm_tree_from_arrays(tree: dict, cfg, device="cuda") -> dict:
+    """The reference's LM parameter tree (``repro.models.transformer.
+    init_params`` as numpy arrays: ``embed``, ``final_ln``, ``lm_head`` and
+    the stacked ``layers`` dict) as the same tree of ``cfg.param_dtype``
+    tensors on ``device``, checked leaf for leaf against ``cfg``'s shapes;
+    ``Transformer(cfg, tree)`` holds it.  Each leaf is a copy."""
+    from .api import resolve_device
+    from .models.transformer import Transformer, param_shapes
+
+    dev = resolve_device(device)
+
+    def leaf(x):
+        return torch.tensor(np.asarray(x, dtype=np.float32),
+                            device=dev).to(cfg.param_dtype)
+
+    params = {k: ({n: leaf(v) for n, v in x.items()} if k == "layers" else leaf(x))
+              for k, x in tree.items()}
+    got = {k: tuple(p.shape)
+           for k, p in Transformer(cfg, params).named_parameters()}
+    want = param_shapes(cfg)
+    if got != want:
+        raise ValueError(f"parameter tree does not fit {cfg.name}: "
+                         f"{sorted(set(got.items()) ^ set(want.items()))}")
+    return params
+
+
+def lm_params_to_arrays(model) -> dict:
+    """The reference's LM parameter tree (numpy arrays) from the port's
+    ``Transformer`` (``layers.wq`` becomes ``tree["layers"]["wq"]``)."""
+    tree: dict = {}
+    for name, p in model.named_parameters():
+        x = p.detach().cpu().numpy()
+        key, _, leaf = name.partition(".")
+        if leaf:
+            tree.setdefault(key, {})[leaf] = x
+        else:
+            tree[key] = x
     return tree

@@ -104,7 +104,11 @@ class FaultTolerantRunner:
                     self.stats.steps_completed += 1
                     if step % self.save_every == 0:
                         self.manager.save(step, state)
-            except SimulatedFailure:
+            except SimulatedFailure as exc:
+                # the traceback holds this frame, and the frame ``failure``:
+                # without this the cycle keeps the run's last state (on the
+                # card, all of it) alive after the run until a gc pass
+                exc.__traceback__ = None
                 self.stats.restarts += 1
                 if self.stats.restarts > self.max_restarts:
                     raise RuntimeError("too many restarts") from None

@@ -1,1 +1,2 @@
-"""Models of the port: the recsys family (DCN-v2 and DLRM so far)."""
+"""Models of the port: the recsys family (DCN-v2, DLRM, DIN, BST) and the
+decoder-only transformer LM."""

@@ -72,6 +72,18 @@ def tree_bytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in _leaves(tree))
 
 
+def cast_tree(tree, dtype):
+    """The tree (nested dicts, lists and tuples of tensors) with every
+    floating leaf cast to ``dtype``; other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_tree(v, dtype) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
 def _key_path(name: str):
     return tuple(int(p) if p.isdigit() else p for p in name.split("."))
 

@@ -260,3 +260,68 @@ def test_straggler_watchdog():
             flagged.append(step)
     assert flagged == [20]
     assert wd.median == 1.0
+
+
+def test_port_lm_checkpoint_restores_in_the_reference(tmp_path):
+    """An LM launcher state (smoke qwen3-0.6b, two steps) saved by the port
+    restores through the reference's ``CheckpointManager`` into the
+    reference's state tree: every leaf equal, names and order included."""
+    from repro.launch import train as rtrain
+
+    from repro_torch.launch import train as ttrain
+
+    state, step, batches, _ = ttrain.build_training("qwen3-0.6b", True, 2, 16,
+                                                    device="cpu")
+    for s in range(2):
+        state, _ = step(state, batches(s))
+    CheckpointManager(str(tmp_path), async_save=False).save(2, state)
+    rstate, *_ = rtrain.build_training("qwen3-0.6b", True, 2, 16)
+    restored, at = RefManager(str(tmp_path)).restore(rstate)
+    assert at == 2 and int(restored[1]["count"]) == 2
+    got, treedef = tree_flatten(state)
+    want, ref_def = jax.tree_util.tree_flatten(restored)
+    assert str(treedef) == str(ref_def)
+    for g, w in zip(got, want):
+        assert np.array_equal(np.asarray(g), np.asarray(w))
+
+
+def test_runner_keeps_no_state_alive_after_a_failure(tmp_path):
+    """A run with a simulated failure holds no reference to its state once
+    it returns: the exception's traceback (which holds the run's frame)
+    is dropped, so no reference cycle keeps the state alive until a gc
+    pass (on the card that is the whole training state)."""
+    import gc
+    import weakref
+
+    def step(state, batch):
+        return {"w": state["w"] + batch}, {"loss": state["w"].sum()}
+
+    runner = FaultTolerantRunner(step, CheckpointManager(tmp_path, async_save=False),
+                                 save_every=2)
+    gc.disable()
+    try:
+        out = runner.run({"w": torch.zeros(4)}, lambda s: torch.ones(4), 4,
+                         failure=SimulatedFailure(at_steps=(3,)))
+        ref = weakref.ref(out["w"])
+        del out
+        assert ref() is None
+    finally:
+        gc.enable()
+    assert runner.stats.restarts == 1
+
+
+def test_tree_flatten_leaves_no_reference_cycle():
+    """Flattening keeps no reference to the tree's leaves once its result
+    is dropped (a recursive closure would, until a gc pass)."""
+    import gc
+    import weakref
+
+    leaf = torch.zeros(3)
+    ref = weakref.ref(leaf)
+    gc.disable()
+    try:
+        out = tree_flatten({"a": [leaf, {"b": (leaf,)}]})
+        del out, leaf
+        assert ref() is None
+    finally:
+        gc.enable()

@@ -18,7 +18,7 @@ from repro.kernels.vbyte_decode import ops as rops
 from repro.kernels.vbyte_decode import ref as rref
 
 from repro_torch.core.jax_engine import DeviceList
-from repro_torch.examples import index_serving, quickstart
+from repro_torch.examples import index_serving, quickstart, train_lm
 from repro_torch.kernels.vbyte_decode import kernel as tk
 from repro_torch.kernels.vbyte_decode import ops as tops
 from repro_torch.kernels.vbyte_decode import ref as tref
@@ -124,12 +124,58 @@ def test_examples_print_the_reference_numbers(name, module, capsys):
     lambda: DeviceList(np.arange(10)),
     lambda: quickstart.main([]),
     lambda: index_serving.main([]),
+    lambda: train_lm.main(["--steps", "1"]),
     lambda: tops.decode(np.ones((8, 128), np.int32), np.zeros((8, 512), np.uint8), 5),
 ])
 def test_examples_need_a_card_unless_told_cpu(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
+
+
+def test_train_lm_config_is_the_reference_examples():
+    """``train_lm.CFG`` holds the keywords of the reference script's
+    ``T.TransformerConfig(...)``, read from its source."""
+    import ast
+    import dataclasses
+
+    tree = ast.parse(open(os.path.join(ROOT, "examples", "train_lm.py")).read())
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and getattr(n.func, "attr", None) == "TransformerConfig"]
+    assert len(calls) == 1
+    want = {k.arg: ast.literal_eval(k.value) for k in calls[0].keywords}
+    got = dataclasses.asdict(train_lm.CFG)
+    assert {k: got[k] for k in want} == want
+    from repro.models.transformer import TransformerConfig
+
+    # the script's "~100M" is 59,253,248 by the config's own count
+    assert train_lm.CFG.param_count() == TransformerConfig(**want).param_count() == 59_253_248
+
+
+def test_train_lm_restarts_once_and_the_loss_falls(capsys):
+    """The example's loop at a narrow config on the CPU: 40 steps, the
+    failure at step 20 restores the step-0 checkpoint (one every 50
+    steps), and the last losses are below the first; the shard index
+    prints the reference loader's bytes."""
+    import dataclasses
+
+    from repro.data import lm_data as R
+
+    cfg = dataclasses.replace(train_lm.CFG, n_layers=2, d_model=64, n_heads=4,
+                              n_kv_heads=4, d_head=16, d_ff=128, vocab=512,
+                              attn_chunk=16, loss_chunk=16)
+    res = train_lm.run(40, 4, 32, device="cpu", cfg=cfg)
+    out = capsys.readouterr().out
+    st = res["stats"]
+    assert (st.restarts, st.wasted_steps, st.steps_completed) == (1, 20, 60)
+    assert int(res["state"][1]["count"]) == 40
+    assert "[train] RESTART #1 from step 0" in out
+    losses = res["losses"]
+    assert len(losses) == 60 and np.mean(losses[-5:]) < np.mean(losses[:5])
+    ref = R.ShardedBatchLoader(R.TokenStream(512, 32 * 4 * 256 + 1), 4, 32)
+    assert (f"compressed shard index: {ref.compressed_index_bytes:,} bytes (OptVB) "
+            f"vs {ref.offsets().size * 8:,} raw") in out
+    assert f"params: {cfg.param_count():,}" in out
 
 
 @pytest.mark.cuda

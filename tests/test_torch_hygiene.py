@@ -58,6 +58,10 @@ def test_scanner_flags_what_it_must(tmp_path):
     "repro_torch.analyze.sync_audit", "repro_torch.core.competitors",
     "repro_torch.launch.train", "repro_torch.core.jax_engine",
     "repro_torch.examples.quickstart", "repro_torch.examples.index_serving",
+    "repro_torch.models.transformer", "repro_torch.data.lm_data",
+    "repro_torch.configs.qwen1_5_0_5b", "repro_torch.configs.qwen3_0_6b",
+    "repro_torch.configs.command_r_35b", "repro_torch.configs.mixtral_8x22b",
+    "repro_torch.configs.moonshot_v1_16b_a3b", "repro_torch.examples.train_lm",
 ])
 def test_import_leaves_no_jax_or_repro_module(module):
     code = (

@@ -11,6 +11,7 @@ statistics, checkpoints read back and a restarted run against an
 unbroken one exactly.
 """
 
+import dataclasses
 import re
 import sys
 
@@ -25,6 +26,7 @@ from repro.configs import get_arch as ref_get_arch
 from repro.data import recsys_data as rdata
 from repro.launch import train as rtrain
 from repro.launch.cells import make_sparse_recsys_train_step as ref_sparse_step
+from repro.launch.cells import make_train_step as ref_make_train_step
 from repro.models import recsys as R
 from repro.optim import adamw as radamw
 
@@ -186,9 +188,155 @@ def test_named_leaves_follow_the_checkpoint_flatten():
 
 @pytest.mark.parametrize("call", [
     lambda: ttrain.build_training("din", True, 4),
+    lambda: ttrain.build_training("qwen3-0.6b", True, 4),
     lambda: ttrain.main(["--arch", "bst", "--smoke", "--steps", "1"]),
 ])
 def test_launcher_needs_a_card_unless_told_cpu(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
+
+
+# --------------------------------------------------------------------------
+# the LM half (models.transformer, data.lm_data) against the reference
+# --------------------------------------------------------------------------
+
+LM_ARCHS = ["command-r-35b", "mixtral-8x22b", "moonshot-v1-16b-a3b", "qwen1.5-0.5b",
+            "qwen3-0.6b"]
+
+
+def _lm_arrays(arch, seed=0, rcfg=None):
+    from repro.models import transformer as RT
+
+    params = RT.init_params(jax.random.PRNGKey(seed), rcfg or ref_get_arch(arch).smoke)
+    return params, jax.tree_util.tree_map(np.asarray, params)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen3-0.6b"])
+def test_lm_steps_match_the_jitted_jax_step_f32(arch):
+    """Three ``make_train_step`` steps of ``lm_loss`` at compute_dtype f32,
+    a dense arch (GQA, qk-norm) and an MoE one (sliding window): losses
+    and gradient norms rtol 1e-5, parameters atol 1e-5 + rtol 1e-4 on every
+    element (each arch's gradients are held leaf by leaf in
+    ``test_torch_transformer.py``)."""
+    from repro.models import transformer as RT
+    from repro_torch.launch.cells import make_train_step
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import adamw_init
+
+    rcfg = dataclasses.replace(ref_get_arch(arch).smoke, compute_dtype=jnp.float32)
+    tcfg = dataclasses.replace(get_arch(arch).smoke, compute_dtype=torch.float32)
+    params, arrays = _lm_arrays(arch, rcfg=rcfg)
+    model = TT.Transformer(tcfg, convert.lm_tree_from_arrays(arrays, tcfg, "cpu"))
+
+    def rloss(p, b, c):
+        return RT.lm_loss(p, b["tokens"], b["labels"], c)
+
+    rstep = jax.jit(ref_make_train_step(rloss, rcfg))
+    ropt = radamw.adamw_init(params)
+    tstep, topt = make_train_step(TT.loss_fn, tcfg), adamw_init(param_dict(model))
+    rng = np.random.default_rng(1)
+    for _ in range(3):
+        b = {k: rng.integers(0, rcfg.vocab, (2, 32)).astype(np.int32)
+             for k in ("tokens", "labels")}
+        params, ropt, rm = rstep(params, ropt, b)
+        _, topt, tm = tstep(model, topt, {k: torch.from_numpy(v) for k, v in b.items()})
+        np.testing.assert_allclose(float(tm["loss"]), float(rm["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(float(tm["grad_norm"]), float(rm["grad_norm"]),
+                                   rtol=1e-5)
+    _assert_params_close(model, params, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_build_training_matches_the_reference(arch):
+    """The launcher's LM half at the smoke configs (bf16): the batches bit
+    for bit; losses rtol 2e-3 and gradient norms rtol 3e-2 (every bf16 op
+    rounds to 8 bits, and a near-tie in the router may send a token to
+    another expert); the parameters' updates (after - before) within the
+    reference's in relative L2 to 0.1, 0.25 for the MoE archs (AdamW's
+    m / sqrt(v) turns the gradients' bf16 differences into flipped steps
+    where a gradient is near zero: 3.5-4.2% dense, 7.2-10.7% MoE on the
+    CPU; the f32 test above holds the step itself to 1e-4)."""
+    rstate, rstep, rbatches, rcfg = rtrain.build_training(arch, True, 4, 32)
+    arrays = jax.tree_util.tree_map(np.asarray, rstate[0])
+    state, step, batches, cfg = ttrain.build_training(arch, True, 4, 32, device="cpu",
+                                                      params=arrays)
+    assert cfg == get_arch(arch).smoke
+    for s in range(3):
+        rb, tb = rbatches(s), batches(s)
+        assert rb.keys() == tb.keys() == {"tokens", "labels"}
+        for k in rb:
+            assert np.array_equal(tb[k].numpy(), rb[k]), k
+        rstate, rm = rstep(rstate, rb)
+        state, m = step(state, tb)
+        np.testing.assert_allclose(float(m["loss"]), float(rm["loss"]), rtol=2e-3)
+        np.testing.assert_allclose(float(m["grad_norm"]), float(rm["grad_norm"]),
+                                   rtol=3e-2)
+    assert state[1]["count"] == int(rstate[1]["count"]) == 3
+    got = ttrain.named_leaves(state[0])
+    want, init = _flat(rstate[0]), _flat(arrays)
+    assert list(got) == list(want)
+    du = np.concatenate([(got[k].detach().numpy() - init[k]).ravel() for k in want])
+    dw = np.concatenate([(want[k] - init[k]).ravel() for k in want])
+    bound = 0.25 if cfg.is_moe else 0.1
+    assert np.linalg.norm(du - dw) < bound * np.linalg.norm(dw)
+
+
+def test_lm_model_scale_matches_the_reference():
+    *_, rcfg = rtrain.build_training("qwen3-0.6b", True, 2, 16, model_scale=2)
+    state, *_, cfg = ttrain.build_training("qwen3-0.6b", True, 2, 16, model_scale=2,
+                                           device="cpu")
+    from test_torch_transformer import _port_cfg
+
+    assert cfg == _port_cfg(rcfg)
+    assert (cfg.n_layers, cfg.d_model, cfg.d_head, cfg.vocab) == (4, 128, 32, 32768)
+    assert sum(x.numel() for x in ttrain.named_leaves(state[0]).values()) == cfg.param_count()
+
+
+def test_lm_training_reduces_loss(tmp_path):
+    """``test_system.py::test_lm_training_reduces_loss`` on the port: 30
+    steps of the smoke qwen1.5-0.5b through the runner with a failure at
+    step 12 restart once, and the loss falls."""
+    state, step, batches, cfg = ttrain.build_training(
+        "qwen1.5-0.5b", smoke=True, batch=8, seq_len=64, device="cpu")
+    mgr = CheckpointManager(tmp_path, async_save=False)
+    runner = ttrain.FaultTolerantRunner(step, mgr, save_every=10)
+    losses = []
+
+    def wrapped(state, b):
+        s, m = step(state, b)
+        losses.append(float(m["loss"]))
+        return s, m
+
+    runner.step_fn = wrapped
+    runner.run(state, batches, 30, failure=ttrain.SimulatedFailure(at_steps=(12,)))
+    assert runner.stats.restarts == 1
+    first = np.mean(losses[:5])
+    last = np.mean(losses[-5:])
+    assert last < first, (first, last)
+
+
+def test_lm_main_with_a_failure_reports_the_reference_run(monkeypatch, capsys, tmp_path):
+    flags = ["--arch", "qwen3-0.6b", "--smoke", "--steps", "6", "--save-every", "2",
+             "--fail-at", "3", "--batch", "2", "--seq-len", "32"]
+    ref_stats = _ref_main(monkeypatch, capsys, [*flags, "--ckpt-dir", str(tmp_path / "ref")])
+    _, arrays = _lm_arrays("qwen3-0.6b")
+    state, stats = ttrain.main([*flags, "--ckpt-dir", str(tmp_path / "port"),
+                                "--device", "cpu"], params=arrays)
+    out = capsys.readouterr().out
+    assert repr(stats) == ref_stats
+    assert (stats.restarts, stats.wasted_steps, stats.steps_completed) == (1, 1, 7)
+    assert "[train] RESTART #1 from step 2" in out
+    n = get_arch("qwen3-0.6b").smoke.param_count()
+    assert f"[train] arch=qwen3-0.6b params={n:,}" in out
+    # the reference's final checkpoint reads into the port's state
+    ref_state, at = CheckpointManager(str(tmp_path / "ref")).restore(state)
+    assert at == 6 and int(ref_state[1]["count"]) == state[1]["count"] == 6
+    # the same steps without the failure: the restart lost nothing
+    clean, clean_stats = ttrain.main(
+        ["--arch", "qwen3-0.6b", "--smoke", "--steps", "6", "--save-every", "2",
+         "--batch", "2", "--seq-len", "32", "--ckpt-dir", str(tmp_path / "clean"),
+         "--device", "cpu"], params=arrays)
+    assert (clean_stats.restarts, clean_stats.steps_completed) == (0, 6)
+    for a, b in zip(tree_flatten(state)[0], tree_flatten(clean)[0]):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
