@@ -49,13 +49,14 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    the CPU or another path): (a) qwen3-0.6b's whole FULL config (28
    layers, 751,632,384 parameters): under deterministic algorithms, the
    ``FaultTolerantRunner`` run of ``launch.train.build_training`` at
-   ``train_4k``'s 4,096 tokens and ``LM_RESTART_BATCH`` sequences (a
-   checkpoint every 2 steps, on ``/dev/shm`` where it is writable, a
-   failure at step 3) ends bit-equal to an unbroken run; then the batch
+   ``train_4k``'s 4,096 tokens and ``LM_RESTART_BATCH`` sequences (2
+   steps, a checkpoint every 2, on ``/dev/shm`` where it is writable, a
+   failure at step 1: two checkpoints written, one read; 4 steps until
+   phase 3d came) ends bit-equal to an unbroken run; then the batch
    that fits is the largest power of two whose predicted peak fits 85%
    of the free memory (cut from 256; the forward and backward measured
    at 1 and 2 sequences, AdamW's update at 1), and the steps run at it or
-   at ``LM_BATCH_CAP`` (8) if smaller, for the run's time limit: 1 + 5
+   at ``LM_BATCH_CAP`` (4) if smaller, for the run's time limit: 1 + 5
    timed steps and 2 traced, the device's activity alone (one ``lm
    train:`` line: step p50/p99, tokens/s,
    peak memory, device busy share and top device ops, mfu as
@@ -86,12 +87,47 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    ``examples.train_lm.run(40)`` on the card: one restart, the last
    losses below the first.  Every cut is printed in the ``lm reduced:``
    line; the phase prints its seconds against its budget of 180 s;
+3d. gnn      -- ``models/gnn.py`` (gin-tu) at full width (5 layers,
+   d_hidden 64), TF32 off, inputs from seed 0: (a) the launcher,
+   ``launch.train.build_training("gin-tu")``, whose sampler's store
+   decodes on the card (``decode_blocks`` counted): 1 + 5 timed steps; under
+   deterministic algorithms a ``FaultTolerantRunner`` run (6 steps, a
+   checkpoint every 2, a failure at step 3) bit-equal to an unbroken run;
+   a batch's logits held to a CPU forward (rtol 1e-4, atol 1e-6); 3
+   smoke-config steps card against CPU; (b) full_graph_sm (cora-like:
+   2,708 nodes, 10,556 uniform edges, d_feat 1,433, 7 classes, 140
+   labelled): 1 + 5 timed steps, logits held to a CPU forward; (c)
+   minibatch_lg: a worker process, started before phase 3c and running
+   beside it, builds a ``CompressedGraphStore`` of
+   ``make_powerlaw_graph(32,768 nodes, avg_degree 400)`` (cut from
+   reddit's 232,965 nodes; the mean degree stays near its 492); after
+   (a), (b), (d) and (e) the main process samples 1 + 3 batches of 1,024
+   seeds, fanouts (15, 10), from it (each list decoded on the card by
+   ``decode_blocks``, counted as in (a): the launch counts set to 0 just
+   before and read just after, and the path fails if the kernel never
+   ran), pads them to the cell's 169,984 nodes and 168,960 edges (d_feat
+   602, 41 classes) and trains on them at full width, the last batch's
+   logits held to a CPU forward; host and device times apart;
+   (d) ogb_products at its full size on one card (2,449,029 nodes,
+   61,859,140 edges from numpy, features, labels and a 196,615-node
+   training mask from a generator on the card, 47 classes): 1 + 3 timed
+   steps and 2 traced (step p50/p99, edges/s, peak memory, device busy
+   share, top device ops), layer 1's aggregation at 4,096 sampled
+   destinations held to ``np.add.at``; (e) molecule (128 graphs of 30
+   nodes and 64 edges, graph readout): 1 + 5 steps from one init on the
+   card and on the CPU, held to each other.  One ``gnn launcher:``,
+   ``gnn cora:``, ``gnn sampled:``, ``gnn products:`` and ``gnn
+   molecule:`` line, the cuts in ``gnn reduced:``, and the phase's
+   seconds against its budget of 60 s;
 4. boolean  -- ``repro_torch.launch.serve`` over the full-size corpus
    (``--n-lists 256 --min-len 10000 --max-len 2000000 --seed 0 --codec
    auto``: 104.55 M postings), then a few batches through an engine over
    the ``ef`` arena of the SAME index, with every kernel's launch count set
-   to 0 just before and read just after; the batched answers are checked
-   against the port's scalar NextGEQ loop, and two batches are traced with
+   to 0 just before and read just after; the batched answers of the first
+   64 queries are checked against the port's scalar NextGEQ loop, which a
+   worker process runs on the host beside phase 3c over the same index
+   and queries, made again from the seed (their digest and the queries
+   held equal to the served ones), and two batches are traced with
    ``torch.profiler`` (device time per kernel against the wall time).
    Then, with the launch counts set to 0 again, ``core.jax_engine.
    DeviceList`` over the index's two longest lists (about 2 M postings
@@ -195,9 +231,9 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    queued behind a spin kernel), and ``pivot_select`` and ``embedding_bag``
    their wrappers' host time and edge launches (``pivot_edge_cases``,
    ``bag_edge_cases``);
-8. the ``kernels`` JSON line (each row also counts its launches in
-   phases 6b, 6c and 6d, and in phase 4's DeviceList and examples), then
-   the result line.
+8. every phase's seconds (one ``phase seconds:`` line), the ``kernels``
+   JSON line (each row also counts its launches in phases 6b, 6c and 6d,
+   and in phase 4's DeviceList and examples), then the result line.
 
 Exits non-zero, before the result line, if any phase fails, if there is no
 CUDA card, or if the port's sources are not beside this script.
@@ -206,6 +242,7 @@ CUDA card, or if the port's sources are not beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -374,16 +411,16 @@ BF16_PEAK = 989e12
 # (the cache is allocated once and does not grow)
 LM_ARCH = "qwen3-0.6b"
 LM_PROBE_BATCHES = (1, 2)
-LM_BATCH_CAP = 8
+LM_BATCH_CAP = 4  # 8 until phase 3d came
 LM_MEM_SHARE = 0.85
 LM_DECODE_MEM_SHARE = 0.95
 LM_WARMUP = 1
 LM_STEPS = 5
 LM_PROFILE = 2
 LM_RESTART_BATCH = 1
-LM_RESTART_STEPS = 4
+LM_RESTART_STEPS = 2  # cut from 4 to make room for phase 3d (lm reduced)
 LM_SAVE_EVERY = 2
-LM_FAIL_AT = 3
+LM_FAIL_AT = 1
 LM_CHECK_TOKENS = 256  # a prompt whose logits are held to a CPU forward
 LM_CHUNK_CHECK = 2048  # chunked attention held to full attention
 LM_HOLD_PREFILL, LM_HOLD_LEN = 1984, 2048  # decode held to a prefill
@@ -406,6 +443,30 @@ MIXTRAL_HOLD = 4096  # decode from here past the window, held to a prefill
 LM_SMOKE_BATCH, LM_SMOKE_SEQ, LM_SMOKE_DECODE = 4, 32, 20
 LM_EXAMPLE_STEPS = 40
 LM_PHASE_S = 180.0
+# phase 3d: the GNN family (gin-tu) at full width, its four shapes
+GNN_ARCH = "gin-tu"
+GNN_WARMUP = 1
+GNN_STEPS = 5  # timed steps: the launcher, cora and molecule
+GNN_SAMPLED_STEPS = 3  # timed minibatch_lg batches
+GNN_PRODUCTS_STEPS = 3  # timed ogb_products steps
+GNN_PROFILE = 2  # ogb_products steps traced by torch.profiler
+GNN_RESTART_STEPS, GNN_SAVE_EVERY, GNN_FAIL_AT = 6, 2, 3
+GNN_SAMPLED_NODES = 32_768  # minibatch_lg's graph: cut from reddit's 232,965
+GNN_SAMPLED_DEGREE = 400  # make_powerlaw_graph's avg_degree: a mean near 490
+GNN_FANOUTS = (15, 10)
+GNN_CORA_TRAIN = 140  # cora's Planetoid split: 20 labelled nodes a class
+GNN_PRODUCTS_TRAIN = 196_615  # the size of ogbn-products' training split
+GNN_AGG_CHECK = 4_096  # destinations of layer 1's sum held to np.add.at
+GNN_AGG_RTOL, GNN_AGG_ATOL = 1e-5, 1e-5
+# logits against a CPU forward: rtol 1e-4 and this atol (the launcher's
+# 256-node batch at 1e-6, as the recsys holds).  An f32 forward is itself
+# off a float64 one by up to 3.1e-6 (cora: 2,708 x 7 logits of O(1),
+# 1,433-long dots) and 1.3e-5 (minibatch_lg: 169,984 x 41, five layers
+# over sums of up to 16 messages) on the card, and card and CPU sum in
+# other orders (cuBLAS's split of the dots, index_add's atomics): up to
+# 5.0e-6 and 9.9e-6 apart (NVIDIA H100 80GB HBM3)
+GNN_LOGITS_ATOL = 3e-5
+GNN_PHASE_S = 60.0
 DEVICE = "cuda"
 
 
@@ -536,8 +597,53 @@ def near_max_rows(rng):
     return lens, data, base, rows, pick
 
 
-def run_main_path(n_lists, torch, serve, counters, QueryEngine):
-    """Phase 4; returns (the serve summary, the ef engine, launches)."""
+def index_digest(idx) -> str:
+    """sha256 of a ``PartitionedIndex``'s serializable arrays and scalars
+    (``convert.index_arrays``)."""
+    import hashlib
+
+    from repro_torch import convert
+
+    h = hashlib.sha256()
+    for k, v in sorted(convert.index_arrays(idx).items()):
+        a = np.ascontiguousarray(v)
+        h.update(f"{k}:{a.dtype}:{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def boolean_oracle(n_lists: int, n_check: int) -> dict:
+    """Phase 4's oracle, run in a worker process beside phase 3c: the
+    boolean path's corpus, index and queries made again as ``serve.run``
+    makes them from the same arguments and seed, and the port's scalar
+    NextGEQ loop (``intersect_scalar``, on the host) over the first
+    ``n_check`` queries.  Returns those queries, their answers, the
+    index's digest (held to the served index's) and the seconds."""
+    sys.path.insert(0, SRC)
+    from repro_torch.core import build_partitioned_index
+    from repro_torch.data.postings import make_corpus, make_queries
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    args = serve.parse_args(["--n-lists", str(n_lists), *SERVE_ARGS,
+                             "--device", "cpu"])
+    rng = np.random.default_rng(args.seed)
+    corpus = make_corpus(rng, n_lists=args.n_lists, min_len=args.min_len,
+                         max_len=args.max_len)
+    idx = build_partitioned_index(corpus, "optimal", codecs=args.cfg.codec_policy)
+    del corpus
+    queries = [[int(t) for t in q] for q in make_queries(
+        rng, args.n_lists, args.queries, args.arity)][:n_check]
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    answers = [idx.intersect_scalar(q) for q in queries]
+    return {"queries": queries, "answers": answers, "digest": index_digest(idx),
+            "build_s": build_s, "scalar_s": time.perf_counter() - t0}
+
+
+def run_main_path(n_lists, torch, serve, counters, QueryEngine, oracle_job):
+    """Phase 4; returns (the serve summary, the ef engine, launches).  The
+    answers are held to ``oracle_job``'s (``boolean_oracle``)."""
     for c in counters.values():
         c.launches = 0
     argv = ["--n-lists", str(n_lists), *SERVE_ARGS, "--device", DEVICE]
@@ -567,18 +673,26 @@ def run_main_path(n_lists, torch, serve, counters, QueryEngine):
     for k, n in launches.items():
         if n <= 0:
             fail(f"kernel {k} was never launched on the main path")
-    # correctness by the repo's own means: the scalar NextGEQ loop
-    idx, n_check = res["index"], min(CHECK_QUERIES, len(res["queries"]))
+    # correctness by the repo's own means: the scalar NextGEQ loop, run by
+    # a worker beside phase 3c over the same index, made again from the seed
     t0 = time.perf_counter()
-    for i, q in enumerate(res["queries"][:n_check]):
-        want = idx.intersect_scalar(q)
+    oracle = oracle_job.result()
+    wait_s = time.perf_counter() - t0
+    n_check = len(oracle["queries"])
+    if oracle["queries"] != res["queries"][:n_check]:
+        fail("the scalar loop's worker made other queries than the served ones")
+    if oracle["digest"] != index_digest(res["index"]):
+        fail("the scalar loop's worker built another index than the served one")
+    for i, (q, want) in enumerate(zip(oracle["queries"], oracle["answers"])):
         if not np.array_equal(res["results"][i], want):
             fail(f"auto arena: batched result of query {q} != scalar loop")
         if i < len(ef_results) and not np.array_equal(ef_results[i], want):
             fail(f"ef arena: batched result of query {q} != scalar loop")
     print(f"[chip_smoke] results identical to the scalar loop on {n_check} "
           f"queries (auto arena) and {min(n_check, len(ef_results))} (ef "
-          f"arena) ({time.perf_counter()-t0:.1f}s)", flush=True)
+          f"arena); the loop took {oracle['scalar_s']:.1f}s and the index "
+          f"{oracle['build_s']:.1f}s in a worker beside phase 3c, waited on "
+          f"{wait_s:.1f}s ({time.perf_counter()-t0:.1f}s)", flush=True)
     return res, ef_engine, launches
 
 
@@ -2425,6 +2539,90 @@ def retrieval_size(torch, fn, want: int) -> tuple[int, float]:
     return min(c, want), per
 
 
+def state_tensors(st) -> dict:
+    """A launcher state's parameters and both AdamW moments, by name."""
+    from repro_torch.launch.train import named_leaves
+
+    return named_leaves({"params": st[0], "m": st[1]["m"], "v": st[1]["v"]})
+
+
+def restart_check(torch, step, make_state, batches, n_steps: int,
+                  save_every: int, fail_at: int, label: str) -> dict:
+    """The launcher's restart check under torch's deterministic algorithms
+    (cuBLAS's workspace fixed in main): ``n_steps`` of ``step`` through
+    ``FaultTolerantRunner`` from ``make_state()`` (a checkpoint every
+    ``save_every``, on ``/dev/shm`` where it is writable, and a failure at
+    ``fail_at``), then the same steps without it from a second
+    ``make_state()``, built after the run, so that no more than two states
+    are alive at once.  Fails unless the run restarts once, the replayed
+    step gives its first pass's loss, and both end bit-equal: parameters,
+    both AdamW moments, step count.  Returns both states and the run's
+    numbers."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import FaultTolerantRunner, SimulatedFailure
+
+    losses = []
+
+    def logged(st, b):
+        st, m = step(st, b)
+        losses.append(float(m["loss"]))
+        return st, m
+
+    shm = "/dev/shm"
+    ckpt = tempfile.mkdtemp(prefix="chip-smoke-ckpt-",
+                            dir=shm if os.access(shm, os.W_OK) else None)
+    torch.use_deterministic_algorithms(True)
+    try:
+        runner = FaultTolerantRunner(logged, CheckpointManager(ckpt, keep=2),
+                                     save_every=save_every)
+        t0 = time.perf_counter()
+        restarted = runner.run(make_state(), batches, n_steps,
+                               failure=SimulatedFailure(at_steps=(fail_at,)))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in pathlib.Path(ckpt).rglob("*")
+                         if f.is_file())
+        shutil.rmtree(ckpt, ignore_errors=True)
+        unbroken = make_state()
+        t0 = time.perf_counter()
+        for s in range(n_steps):
+            unbroken, _ = step(unbroken, batches(s))
+        torch.cuda.synchronize()
+        unbroken_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    stats = runner.stats
+    if stats.restarts != 1 or stats.steps_completed != n_steps + stats.wasted_steps:
+        fail(f"{label}: run statistics {stats}, not one restart")
+    if not np.isfinite(losses).all():
+        fail(f"{label}: a loss is not finite: {losses}")
+    # the step the restart replayed first gives its first pass's loss
+    at = fail_at - stats.wasted_steps
+    if losses[at] != losses[fail_at]:
+        fail(f"{label}: the replayed step {at} lost {losses[fail_at]}, the "
+             f"first pass {losses[at]}: the restore is not the checkpoint")
+    if not int(unbroken[1]["count"]) == int(restarted[1]["count"]) == n_steps:
+        fail(f"{label}: step counts {unbroken[1]['count']} and "
+             f"{restarted[1]['count']}")
+    want, got = state_tensors(unbroken), state_tensors(restarted)
+    if not all(t.device.type == torch.device(DEVICE).type for t in got.values()):
+        fail(f"{label}: a restored leaf is not on the card")
+    n_off = sum(int((got[k] != w).sum()) for k, w in want.items())
+    if n_off:
+        fail(f"{label}: the restarted run ends in {n_off} elements off an "
+             f"unbroken run's under deterministic algorithms")
+    return {"restarted": restarted, "unbroken": unbroken, "stats": stats,
+            "losses": losses, "replayed": at, "run_s": run_s,
+            "unbroken_s": unbroken_s, "checkpoint_bytes": ckpt_bytes,
+            "elements_off": n_off,
+            "elements": sum(w.numel() for w in want.values())}
+
+
 def run_seq_arch(torch, arch, card):
     """Phase 3b and 3c for one sequential arch at full width: timed steps
     through ``launch.train.build_training``; under deterministic
@@ -2434,14 +2632,8 @@ def run_seq_arch(torch, arch, card):
     forward and (smoke config) steps to CPU steps; then ``serve_score`` at the serve
     shapes and ``retrieval_step`` at the retrieval shape.  Returns the
     ``recsys seq:`` line."""
-    import pathlib
-    import shutil
-    import tempfile
-
-    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.checkpoint.manager import tree_map
     from repro_torch.configs import get_arch
-    from repro_torch.distributed import FaultTolerantRunner, SimulatedFailure
     from repro_torch.launch.train import build_training, named_leaves
     from repro_torch import convert
     from repro_torch.models.common import tree_size
@@ -2459,8 +2651,8 @@ def run_seq_arch(torch, arch, card):
     torch.cuda.empty_cache()
     state, step, batches, cfg = build_training(arch, smoke=False, batch=batch,
                                                device=DEVICE)
-    state0, state1 = (tree_map(lambda x: x.clone() if isinstance(
-        x, torch.Tensor) else x, state) for _ in range(2))
+    copies = [tree_map(lambda x: x.clone() if isinstance(
+        x, torch.Tensor) else x, state) for _ in range(2)]
     # the peak counts the training state and what the steps allocate, not
     # the two copies kept for the restart check
     base = torch.cuda.memory_allocated() - sum(
@@ -2487,73 +2679,24 @@ def run_seq_arch(torch, arch, card):
     if not np.isfinite(timed_losses).all():
         fail(f"{arch}: a loss is not finite: {timed_losses}")
 
-    # the restart check, under torch's deterministic algorithms (cuBLAS's
-    # workspace fixed in main): the run with a failure and a run of the
-    # same steps without it must end bit-equal, parameters, both AdamW
-    # moments and the step count
-    losses = []
-
-    def logged(st, b):
-        st, m = step(st, b)
-        losses.append(float(m["loss"]))
-        return st, m
-
-    ckpt = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
-    torch.use_deterministic_algorithms(True)
-    try:
-        manager = CheckpointManager(ckpt, keep=2)
-        runner = FaultTolerantRunner(logged, manager, save_every=SEQ_SAVE_EVERY)
-        t0 = time.perf_counter()
-        restarted = runner.run(state0, cached, SEQ_STEPS,
-                               failure=SimulatedFailure(at_steps=(SEQ_FAIL_AT,)))
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        ckpt_bytes = sum(f.stat().st_size for f in pathlib.Path(ckpt).rglob("*")
-                         if f.is_file())
-        unbroken = state1
-        for s in range(SEQ_STEPS):
-            unbroken, _ = step(unbroken, cached(s))
-        torch.cuda.synchronize()
-    finally:
-        torch.use_deterministic_algorithms(False)
-        shutil.rmtree(ckpt, ignore_errors=True)
-    stats = runner.stats
-    if stats.restarts != 1 or stats.steps_completed != SEQ_STEPS + stats.wasted_steps:
-        fail(f"{arch}: run statistics {stats}, not one restart")
-    if not np.isfinite(losses).all():
-        fail(f"{arch}: a loss is not finite: {losses}")
-    # the step the restart replayed first gives its first pass's loss
-    at = SEQ_FAIL_AT - stats.wasted_steps
-    if losses[at] != losses[SEQ_FAIL_AT]:
-        fail(f"{arch}: the replayed step {at} lost {losses[SEQ_FAIL_AT]}, the "
-             f"first pass {losses[at]}: the restore is not the checkpoint")
-    if not int(unbroken[1]["count"]) == int(restarted[1]["count"]) == SEQ_STEPS:
-        fail(f"{arch}: step counts {unbroken[1]['count']} and "
-             f"{restarted[1]['count']}")
-
-    def tensors(st):  # the parameters and both AdamW moments, by name
-        return named_leaves({"params": st[0], "m": st[1]["m"], "v": st[1]["v"]})
-
-    want = tensors(unbroken)
-    n_elems = sum(x.numel() for x in want.values())
-    got = tensors(restarted)
-    n_off = sum(int((got[k] != w).sum()) for k, w in want.items())
+    rc = restart_check(torch, step, copies.pop, cached, SEQ_STEPS,
+                       SEQ_SAVE_EVERY, SEQ_FAIL_AT, arch)
+    stats, losses, run_s, n_off, n_elems = (
+        rc[k] for k in ("stats", "losses", "run_s", "elements_off", "elements"))
     # the default mode's run against the deterministic one: the card's
     # embedding backward sums repeated rows with atomics in no fixed order
-    spread = elements_off(torch, tensors(state), want)
+    spread = elements_off(torch, state_tensors(state), state_tensors(rc["unbroken"]))
     n_spread = sum(spread.values())
     top = dict(sorted(spread.items(), key=lambda kv: -kv[1])[:4])
     print(f"[chip_smoke] {arch} restart, deterministic algorithms: the "
-          f"replayed step {at}'s loss equals its first pass; {n_off} of "
-          f"{n_elems:,} elements (parameters and AdamW moments) differ from "
+          f"replayed step {rc['replayed']}'s loss equals its first pass; {n_off} "
+          f"of {n_elems:,} elements (parameters and AdamW moments) differ from "
           f"an unbroken run's; the default mode's timed run is off the "
           f"unbroken run's by more than atol 1e-5 + rtol 1e-4 in {n_spread} "
           f"({json.dumps(top)}); {run_s:.1f}s with the restart", flush=True)
-    if n_off:
-        fail(f"{arch}: the restarted run ends in {n_off} elements off an "
-             f"unbroken run's under deterministic algorithms")
-    state = restarted
-    del unbroken, state0, state1, got, want
+    ckpt_bytes = rc["checkpoint_bytes"]
+    state = rc["restarted"]
+    del rc
     timed_ms = step_ms[RECSYS_WARMUP:]
     model = Recsys(cfg, state[0])
 
@@ -2755,89 +2898,45 @@ def decode_from(torch, model, cfg, tok, start: int, total: int):
 
 
 def lm_restart(torch, S: int, card) -> dict:
-    """qwen3-0.6b's restart check at full width: under deterministic
-    algorithms, LM_RESTART_STEPS steps through ``FaultTolerantRunner`` (a
-    checkpoint every LM_SAVE_EVERY, a failure at LM_FAIL_AT) end bit-equal
-    to the same steps without it: parameters, both AdamW moments, step
-    count; the replayed step's loss equals its first pass."""
-    import shutil
-    import tempfile
-
-    from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.distributed import FaultTolerantRunner, SimulatedFailure
-    from repro_torch.launch.train import build_training, named_leaves
+    """qwen3-0.6b's restart check at full width (``restart_check``):
+    under deterministic algorithms, LM_RESTART_STEPS steps through
+    ``FaultTolerantRunner`` (a checkpoint every LM_SAVE_EVERY, a failure
+    at LM_FAIL_AT) end bit-equal to the same steps without it:
+    parameters, both AdamW moments, step count; the replayed step's loss
+    equals its first pass.  Each state (12 GB) is built when the check
+    asks for it."""
+    from repro_torch.launch.train import build_training
 
     made = {}
-    losses = []
-    # a tmpfs where there is one: each checkpoint holds 9 GB of state
-    shm = "/dev/shm"
-    ckpt = tempfile.mkdtemp(prefix="chip-smoke-lm-",
-                            dir=shm if os.access(shm, os.W_OK) else None)
-    torch.use_deterministic_algorithms(True)
-    try:
-        state, step, batches, cfg = build_training(LM_ARCH, False, LM_RESTART_BATCH,
-                                                   S, device=DEVICE)
+    state, step, batches, _ = build_training(LM_ARCH, False, LM_RESTART_BATCH,
+                                             S, device=DEVICE)
+    first = [state]
+    del state
 
-        def cached(s):
-            if s not in made:
-                made[s] = batches(s)
-            return made[s]
+    def make_state():
+        return first.pop() if first else build_training(
+            LM_ARCH, False, LM_RESTART_BATCH, S, device=DEVICE)[0]
 
-        def logged(st, b):
-            st, m = step(st, b)
-            losses.append(float(m["loss"]))
-            return st, m
+    def cached(s):
+        if s not in made:
+            made[s] = batches(s)
+        return made[s]
 
-        t0 = time.perf_counter()
-        unbroken = state
-        for s in range(LM_RESTART_STEPS):
-            unbroken, _ = step(unbroken, cached(s))
-        torch.cuda.synchronize()
-        unbroken_s = time.perf_counter() - t0
-        state, *_ = build_training(LM_ARCH, False, LM_RESTART_BATCH, S, device=DEVICE)
-        runner = FaultTolerantRunner(logged, CheckpointManager(ckpt, keep=2),
-                                     save_every=LM_SAVE_EVERY)
-        t0 = time.perf_counter()
-        restarted = runner.run(state, cached, LM_RESTART_STEPS,
-                               failure=SimulatedFailure(at_steps=(LM_FAIL_AT,)))
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-    finally:
-        torch.use_deterministic_algorithms(False)
-        shutil.rmtree(ckpt, ignore_errors=True)
-    stats = runner.stats
-    if stats.restarts != 1 or stats.steps_completed != LM_RESTART_STEPS + stats.wasted_steps:
-        fail(f"lm restart: run statistics {stats}, not one restart")
-    if not np.isfinite(losses).all():
-        fail(f"lm restart: a loss is not finite: {losses}")
-    at = LM_FAIL_AT - stats.wasted_steps
-    if losses[at] != losses[LM_FAIL_AT]:
-        fail(f"lm restart: the replayed step {at} lost {losses[LM_FAIL_AT]}, its "
-             f"first pass {losses[at]}")
-    if not int(unbroken[1]["count"]) == int(restarted[1]["count"]) == LM_RESTART_STEPS:
-        fail(f"lm restart: step counts {unbroken[1]['count']} and {restarted[1]['count']}")
-
-    def tensors(st):
-        return named_leaves({"params": st[0], "m": st[1]["m"], "v": st[1]["v"]})
-
-    want, got = tensors(unbroken), tensors(restarted)
-    if not all(t.device.type == torch.device(DEVICE).type for t in got.values()):
-        fail("lm restart: a restored leaf is not on the card")
-    n_off = sum(int((got[k] != w).sum()) for k, w in want.items())
-    n = sum(w.numel() for w in want.values())
+    rc = restart_check(torch, step, make_state, cached, LM_RESTART_STEPS,
+                       LM_SAVE_EVERY, LM_FAIL_AT, "lm restart")
+    stats = rc["stats"]
     print(f"[chip_smoke] lm restart, deterministic algorithms, batch "
-          f"{LM_RESTART_BATCH} x {S}: the replayed step {at}'s loss equals its "
-          f"first pass; {n_off} of {n:,} elements (parameters and AdamW "
-          f"moments) differ from an unbroken run's; {run_s:.1f}s with the "
-          f"restart and {stats.steps_completed} steps, {unbroken_s:.1f}s for "
-          f"the {LM_RESTART_STEPS} unbroken steps [{card}]", flush=True)
-    if n_off:
-        fail(f"lm restart: {n_off} elements off an unbroken run's")
+          f"{LM_RESTART_BATCH} x {S}: the replayed step {rc['replayed']}'s loss "
+          f"equals its first pass; {rc['elements_off']} of {rc['elements']:,} "
+          f"elements (parameters and AdamW moments) differ from an unbroken "
+          f"run's; {rc['run_s']:.1f}s with the restart and "
+          f"{stats.steps_completed} steps, {rc['unbroken_s']:.1f}s for the "
+          f"{LM_RESTART_STEPS} unbroken steps [{card}]", flush=True)
     return {"restart_batch": LM_RESTART_BATCH, "restart_steps": LM_RESTART_STEPS,
             "save_every": LM_SAVE_EVERY, "fail_at": LM_FAIL_AT,
-            "run_stats": stats.as_dict(), "restart_run_losses": losses,
-            "restart_run_s": run_s, "restart_elements_off": n_off,
-            "elements_compared": n}
+            "run_stats": stats.as_dict(), "restart_run_losses": rc["losses"],
+            "restart_run_s": rc["run_s"], "restart_elements_off": rc["elements_off"],
+            "elements_compared": rc["elements"]}
 
 
 def lm_train_batch(torch, S: int, want: int) -> tuple[int, dict]:
@@ -2912,10 +3011,20 @@ def run_lm_qwen3(torch, card, reduced: list) -> dict:
         reduced.append({"what": f"{LM_ARCH} timed train batch", "was": fits, "is": B,
                         "why": "the run's time limit: a step takes ~0.65 s a "
                         "sequence of 4,096 tokens (f32 attention, TF32 off), so "
-                        "the 8 steps at the batch that fits take ~80 s"})
+                        "the 8 steps at the batch that fits take ~80 s; at 4 "
+                        "(8 until the GNN phase came) ~22 s"})
     reduced.append({"what": f"{LM_ARCH} restart check batch", "was": B,
                     "is": LM_RESTART_BATCH, "why": "the check is of the state "
                     "(12 GB at any batch); a step at batch 1 takes ~1 s"})
+    reduced.append({"what": f"{LM_ARCH} restart check steps", "was": 4,
+                    "is": LM_RESTART_STEPS, "why": "the run's time limit: a 9 GB "
+                    "checkpoint takes ~16 s to write or read; with the failure at "
+                    f"step {LM_FAIL_AT} the run writes two (steps 0 and "
+                    f"{LM_RESTART_STEPS}) and reads one, where 4 steps with it at "
+                    "step 3 wrote three; the read is of step 0's checkpoint, so "
+                    "the LM's restore of AdamW moments and step count from a "
+                    "trained state is held by the GNN, DIN and BST restart "
+                    "checks alone (the restore is one code path for all)"})
     free_bytes(torch)
     t0 = time.perf_counter()
     state, step, batches, cfg = build_training(LM_ARCH, False, B, S, device=DEVICE)
@@ -3364,6 +3473,503 @@ def run_lm_path(torch, card) -> dict:
     return piece_s
 
 
+def gnn_shape_cfg(bundle, shape):
+    """A gin-tu shape's config, as ``repro/launch/cells.py::_gnn_cell``
+    derives it: ``d_in`` the shape's ``d_feat``; 41 classes when sampled, 2
+    for molecule, 47 for ogb_products, else the FULL config's 7; graph
+    readout for molecule; bf16 messages for full batch, which only the
+    dst-sharded path reads (without a mesh the loss runs in f32)."""
+    if shape.kind == "sampled":
+        n_classes = 41
+    elif shape.kind == "molecule":
+        n_classes = 2
+    else:
+        n_classes = 47 if shape.name == "ogb_products" else bundle.full.n_classes
+    return dataclasses.replace(
+        bundle.full, d_in=shape.d_feat, n_classes=n_classes,
+        graph_readout=shape.kind == "molecule",
+        message_dtype="bfloat16" if shape.kind == "fullbatch" else "float32")
+
+
+def gnn_trainer(torch, model, cfg):
+    """``run(batch) -> (loss, ms)``: one ``make_train_step`` step of
+    ``models.gnn.loss_fn`` on ``model`` (in place), timed to its end."""
+    from repro_torch.launch.cells import make_train_step
+    from repro_torch.models import gnn as G
+    from repro_torch.models.common import param_dict
+    from repro_torch.optim import adamw_init
+
+    step = make_train_step(G.loss_fn, cfg)
+    opt = adamw_init(param_dict(model))
+    on_card = model.head.device.type == "cuda"
+
+    def run(b):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(model, opt, b)
+        loss = float(m["loss"])
+        if on_card:
+            torch.cuda.synchronize()
+        return loss, (time.perf_counter() - t0) * 1e3
+
+    return run
+
+
+def gnn_upload(torch, b: dict, device) -> dict:
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def gnn_host_model(model, cfg):
+    """The same parameters in a GIN on the host."""
+    from repro_torch import convert
+    from repro_torch.models import gnn as G
+
+    return G.GIN(cfg, convert.gnn_tree_from_arrays(convert.gnn_params_to_arrays(model),
+                                                   cfg, "cpu"))
+
+
+def gnn_hold_logits(torch, model, cfg, batch, label, atol=GNN_LOGITS_ATOL) -> dict:
+    """The card's logits of ``batch`` held to a CPU forward of the same
+    parameters (rtol 1e-4 and ``atol``), every one finite; -> the max
+    |diff| and the worst element's share of its tolerance, and the max
+    |diff| of the card's and the CPU's logits from a float64 CPU forward
+    (recorded, not held: each f32 forward's own error)."""
+    from repro_torch.models import gnn as G
+
+    def logits(m, b):
+        kw = ({"graph_ids": b["graph_ids"], "n_graphs": b["labels"].shape[0]}
+              if cfg.graph_readout else {})
+        return G.forward(m, b["feats"], b["edges"], b["edge_mask"], cfg, **kw)
+
+    host = {k: v.cpu() for k, v in batch.items()}
+    with torch.no_grad():
+        got = logits(model, batch).cpu()
+        want = logits(gnn_host_model(model, cfg), host)
+        exact = logits(gnn_host_model(model, cfg).double(),
+                       {**host, "feats": host["feats"].double()})
+    diff = float((got - want).abs().max())
+    worst = float(((got - want).abs() / (atol + 1e-4 * want.abs())).max())
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()) or worst > 1:
+        fail(f"gnn {label}: logits {tuple(got.shape)} on the card off a CPU forward "
+             f"{tuple(want.shape)}: max |diff| {diff:.3e}, {worst:.2f}x the tolerance "
+             f"(rtol 1e-4, atol {atol:g})")
+    return {"logits_max_abs_diff": diff, "logits_worst_of_tolerance": worst,
+            "logits_atol": atol,
+            "card_vs_f64_max_abs_diff": float((got - exact).abs().max()),
+            "cpu_vs_f64_max_abs_diff": float((want - exact).abs().max())}
+
+
+def gnn_finite(label, losses) -> None:
+    if not np.isfinite(losses).all():
+        fail(f"gnn {label}: a loss is not finite: {losses}")
+
+
+def gnn_timed(ms: list, losses: list) -> dict:
+    timed = ms[GNN_WARMUP:]
+    return {"warmup_steps": GNN_WARMUP, "steps": len(timed), "step_ms": timed,
+            "step_p50_ms": float(np.percentile(timed, 50)),
+            "step_p99_ms": float(np.percentile(timed, 99)), "losses": losses}
+
+
+def run_gnn_launcher(torch, card, bundle, shapes, counters) -> dict:
+    """Phase 3d (a): ``launch.train.build_training("gin-tu")`` at full width
+    on the card: 1 + GNN_STEPS timed steps; under deterministic algorithms
+    a ``FaultTolerantRunner`` run (a checkpoint every GNN_SAVE_EVERY, a
+    failure at GNN_FAIL_AT) that must end bit-equal to an unbroken run of
+    the same steps (parameters, both AdamW moments, step count); one
+    batch's logits held to a CPU forward; SMOKE_STEPS smoke-config steps on
+    the card held to the CPU's.  The launch counts are set to 0 just before
+    and read after the card's steps: the sampler's graph store must have
+    decoded through ``decode_blocks``."""
+    from repro_torch import convert
+    from repro_torch.checkpoint.manager import tree_map
+    from repro_torch.launch.train import build_training, named_leaves
+    from repro_torch.models import gnn as G
+
+    for c in counters.values():
+        c.launches = 0
+    state, step, batches, cfg = build_training(GNN_ARCH, False, 8, device=DEVICE)
+    if cfg != bundle.full or state[0]["head"].device.type != torch.device(DEVICE).type:
+        fail("gnn launcher: not the full config on the card")
+    copies = [tree_map(lambda x: x.clone() if isinstance(
+        x, torch.Tensor) else x, state) for _ in range(2)]
+    made = {}
+
+    def cached(s):  # each step's batch is sampled and uploaded once
+        if s not in made:
+            made[s] = batches(s)
+        return made[s]
+
+    step_ms, losses = [], []
+    for s in range(GNN_WARMUP + GNN_STEPS):
+        b = cached(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    gnn_finite("launcher", losses)
+
+    rc = restart_check(torch, step, copies.pop, cached, GNN_RESTART_STEPS,
+                       GNN_SAVE_EVERY, GNN_FAIL_AT, "gnn launcher")
+    held = gnn_hold_logits(torch, G.GIN(cfg, rc["restarted"][0]), cfg, cached(0),
+                           "launcher", atol=1e-6)
+
+    # smoke-config steps on the card against the CPU, from one init
+    smoke = bundle.smoke
+    init = convert.gnn_params_to_arrays(G.init_model(smoke, 0, "cpu"))
+    runs = {}
+    for dev in ("cpu", DEVICE):
+        st, stp, bts, _ = build_training(GNN_ARCH, True, 8, device=dev, params=init)
+        ls = []
+        for s in range(SMOKE_STEPS):
+            st, m = stp(st, bts(s))
+            ls.append(float(m["loss"]))
+        runs[dev] = (st, ls)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    if launches["decode_blocks"] <= 0:
+        fail(f"gnn launcher: the graph store's decodes launched no decode_blocks: "
+             f"{launches}")
+    if not np.allclose(runs[DEVICE][1], runs["cpu"][1], rtol=1e-5, atol=0):
+        fail(f"gnn smoke steps: card losses {runs[DEVICE][1]} != CPU {runs['cpu'][1]}")
+    smoke_worst = worst_ratio(torch, named_leaves(runs[DEVICE][0][0]),
+                              named_leaves(runs["cpu"][0][0]))
+    if smoke_worst > 1:
+        fail(f"gnn smoke steps: card parameters {smoke_worst:.2f}x the tolerance "
+             "off the CPU's")
+    line = {"config": cfg.name, "params": sum(x.numel() for x in named_leaves(
+        state[0]).values()), **gnn_timed(step_ms, losses),
+        "restart_steps": GNN_RESTART_STEPS, "save_every": GNN_SAVE_EVERY,
+        "fail_at": GNN_FAIL_AT, "run_stats": rc["stats"].as_dict(),
+        "restart_run_losses": rc["losses"], "restart_run_s": rc["run_s"],
+        "restart_elements_off": rc["elements_off"],
+        "elements_compared": rc["elements"],
+        **held, "smoke_losses": runs[DEVICE][1],
+        "smoke_cpu_losses": runs["cpu"][1], "smoke_worst_of_tolerance": smoke_worst,
+        "launches": launches, "card": card}
+    print(f"[chip_smoke] gnn launcher: {json.dumps(line)}", flush=True)
+    return line
+
+
+def run_gnn_cora(torch, card, bundle, shapes) -> dict:
+    """Phase 3d (b): full_graph_sm (cora-like) at full width: 1 +
+    GNN_STEPS timed steps on the whole graph, its logits held to a CPU
+    forward."""
+    from repro_torch.models import gnn as G
+
+    shape = shapes["full_graph_sm"]
+    cfg = gnn_shape_cfg(bundle, shape)
+    N, E = shape.n_nodes, shape.n_edges
+    rng = np.random.default_rng(0)
+    edges = rng.integers(0, N, (2, E)).astype(np.int32)  # every edge real
+    lmask = np.zeros(N, bool)
+    lmask[rng.choice(N, GNN_CORA_TRAIN, replace=False)] = True
+    batch = gnn_upload(torch, {
+        "feats": rng.normal(size=(N, shape.d_feat)).astype(np.float32),
+        "edges": edges, "edge_mask": np.ones(E, bool),
+        "labels": rng.integers(0, cfg.n_classes, N).astype(np.int32),
+        "label_mask": lmask}, DEVICE)
+    model = G.init_model(cfg, 0, DEVICE)
+    run = gnn_trainer(torch, model, cfg)
+    losses, ms = zip(*(run(batch) for _ in range(GNN_WARMUP + GNN_STEPS)))
+    gnn_finite("cora", losses)
+    line = {"config": cfg.name, "shape": shape.name, "nodes": N, "edges": E,
+            "d_feat": shape.d_feat, "classes": cfg.n_classes,
+            "labelled": GNN_CORA_TRAIN, **gnn_timed(list(ms), list(losses)),
+            **gnn_hold_logits(torch, model, cfg, batch, "cora"), "card": card}
+    print(f"[chip_smoke] gnn cora: {json.dumps(line)}", flush=True)
+    return line
+
+
+def gnn_sampled_store(seed: int, n_nodes: int, avg_degree: int, device) -> dict:
+    """Phase 3d (c)'s host half, run in a worker process beside phase 3c:
+    minibatch_lg's graph (``make_powerlaw_graph`` from
+    ``default_rng(seed)``) in a ``CompressedGraphStore`` for ``device``,
+    its block arena transcoded here too.  The worker launches nothing on
+    the card: the store's engine, and so every decode, comes up in the
+    process that samples.  Returns the store and the host times."""
+    sys.path.insert(0, SRC)
+    from repro_torch.data.graph_data import CompressedGraphStore, make_powerlaw_graph
+
+    t_worker = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    adj = make_powerlaw_graph(rng, n_nodes, avg_degree)
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = CompressedGraphStore(adj, device)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store.index.arena  # noqa: B018 -- the host transcode, built once here
+    arena_s = time.perf_counter() - t0
+    return {"store": store, "graph_s": graph_s, "build_s": build_s,
+            "arena_s": arena_s, "edges": int(sum(len(l) for l in adj)),
+            "worker_s": time.perf_counter() - t_worker}
+
+
+def run_gnn_sampled(torch, card, bundle, shapes, counters, job) -> dict:
+    """Phase 3d (c): minibatch_lg, the sampled mode, on the worker's store
+    (``gnn_sampled_store``): 1 + GNN_SAMPLED_STEPS batches, batch i drawn
+    from ``default_rng(1 + i)``: the shape's seeds, their subgraph
+    (``sample_subgraph``, each list decoded on the card by
+    ``decode_blocks``, with the launch counts set to 0 just before and
+    read just after), padded by ``pad_subgraph`` to the cell's nodes and
+    edges, labels on the seed rows; each uploaded and trained on at full
+    width; the last batch's logits held to a CPU forward.  Host and device
+    times apart."""
+    from repro_torch.data.graph_data import pad_subgraph
+    from repro_torch.models import gnn as G
+
+    shape = shapes["minibatch_lg"]
+    cfg = gnn_shape_cfg(bundle, shape)
+    n_seeds = shape.batch
+    n_pad = n_seeds * (1 + GNN_FANOUTS[0] + GNN_FANOUTS[0] * GNN_FANOUTS[1])
+    e_pad = n_seeds * (GNN_FANOUTS[0] + GNN_FANOUTS[0] * GNN_FANOUTS[1])
+    t0 = time.perf_counter()
+    host = job.result()
+    wait_s = time.perf_counter() - t0
+    store = host["store"]
+    for c in counters.values():
+        c.launches = 0
+    sample_ms, pad_ms, upload_ms, real, batches = [], [], [], [], []
+    for i in range(GNN_WARMUP + GNN_SAMPLED_STEPS):
+        r = np.random.default_rng(1 + i)
+        seeds = r.choice(GNN_SAMPLED_NODES, size=n_seeds, replace=False)
+        t0 = time.perf_counter()
+        nodes, edges = store.sample_subgraph(r, seeds, fanouts=GNN_FANOUTS)
+        sample_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        feats, e, m, n_real = pad_subgraph(nodes, edges, n_pad, e_pad,
+                                           shape.d_feat, r)
+        pad_ms.append((time.perf_counter() - t0) * 1e3)
+        lmask = np.zeros(n_pad, bool)
+        lmask[:n_seeds] = True  # the seeds are the subgraph's first nodes
+        real.append((int(n_real), int(edges.shape[1])))
+        t0 = time.perf_counter()
+        batches.append(gnn_upload(torch, {
+            "feats": feats, "edges": e, "edge_mask": m,
+            "labels": r.integers(0, cfg.n_classes, n_pad).astype(np.int32),
+            "label_mask": lmask}, DEVICE))
+        torch.cuda.synchronize()
+        upload_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    if launches["decode_blocks"] <= 0:
+        fail(f"gnn sampled: the sampler's decodes launched no decode_blocks: "
+             f"{launches}")
+    stats = {k: store.engine.stats[k] for k in ("kernel_calls", "decoded_rows",
+                                                "cache_hits", "evictions")}
+    model = G.init_model(cfg, 0, DEVICE)
+    run = gnn_trainer(torch, model, cfg)
+    losses, ms = zip(*(run(b) for b in batches))
+    gnn_finite("sampled", losses)
+    line = {"config": cfg.name, "shape": shape.name, "graph_nodes": GNN_SAMPLED_NODES,
+            "shape_nodes": shape.n_nodes, "graph_edges": host["edges"],
+            "mean_degree": host["edges"] / GNN_SAMPLED_NODES,
+            "graph_s": host["graph_s"], "store_build_s": host["build_s"],
+            "store_arena_s": host["arena_s"],
+            "compressed_bytes": store.compressed_bytes, "raw_bytes": store.raw_bytes,
+            "bits_per_edge": 8 * store.compressed_bytes / host["edges"],
+            "arena_blocks": int(store.index.arena.n_blocks),
+            "seeds": n_seeds, "fanouts": list(GNN_FANOUTS),
+            "nodes_pad": n_pad, "edges_pad": e_pad, "d_feat": shape.d_feat,
+            "classes": cfg.n_classes,
+            "real_nodes": [n for n, _ in real], "real_edges": [e for _, e in real],
+            "host_sample_ms": sample_ms, "host_pad_ms": pad_ms,
+            "upload_ms": upload_ms, "launches": launches, "engine_stats": stats,
+            **gnn_timed(list(ms), list(losses)),
+            "worker_s": host["worker_s"], "worker_wait_s": wait_s,
+            **gnn_hold_logits(torch, model, cfg, batches[-1], "sampled"),
+            "card": card}
+    print(f"[chip_smoke] gnn sampled: {json.dumps(line)}", flush=True)
+    return line
+
+
+def run_gnn_products(torch, card, bundle, shapes) -> dict:
+    """Phase 3d (d): ogb_products, full batch at its full size on one card:
+    edges from numpy on the host, features, labels and a training split's
+    label mask from a seeded generator on the card; 1 +
+    GNN_PRODUCTS_STEPS timed steps and GNN_PROFILE traced ones (the
+    device's activity alone), deterministic algorithms off; layer 1's
+    aggregation at GNN_AGG_CHECK sampled destinations held to
+    ``np.add.at`` on the host."""
+    from repro_torch.models import gnn as G
+
+    shape = shapes["ogb_products"]
+    cfg = gnn_shape_cfg(bundle, shape)
+    N, E, d = shape.n_nodes, shape.n_edges, shape.d_feat
+    free_bytes(torch)
+    t0 = time.perf_counter()
+    edges = np.random.default_rng(0).integers(0, N, (2, E), dtype=np.int32)
+    edges_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    feats = torch.randn((N, d), generator=gen, device=DEVICE)
+    lmask = torch.zeros(N, dtype=torch.bool, device=DEVICE)
+    lmask[torch.randperm(N, generator=gen, device=DEVICE)[:GNN_PRODUCTS_TRAIN]] = True
+    batch = {"feats": feats, "edges": torch.from_numpy(edges).to(DEVICE),
+             "edge_mask": torch.ones(E, dtype=torch.bool, device=DEVICE),
+             "labels": torch.randint(0, cfg.n_classes, (N,), generator=gen,
+                                     device=DEVICE, dtype=torch.int32),
+             "label_mask": lmask}
+    model = G.init_model(cfg, 1, DEVICE)
+    run = gnn_trainer(torch, model, cfg)
+    torch.cuda.synchronize()
+    inputs = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = map(list, zip(*(run(batch)
+                                 for _ in range(GNN_WARMUP + GNN_PRODUCTS_STEPS))))
+    peak = torch.cuda.max_memory_allocated()
+    timing = {}
+    prof = profile_calls(torch, [lambda: losses.append(run(batch)[0])] * GNN_PROFILE,
+                         card, "gnn products", "steps", timing, cpu=False)
+    gnn_finite("products", losses)
+
+    # layer 1's aggregation at sampled destinations against np.add.at
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        keep = batch["edge_mask"][:, None].to(feats.dtype)
+        agg = G.aggregate(feats, batch["edges"][0], batch["edges"][1], keep)
+        del keep
+    sel = np.sort(np.random.default_rng(1).choice(N, GNN_AGG_CHECK, replace=False))
+    got = agg[torch.from_numpy(sel).to(DEVICE)].cpu().numpy()
+    del agg
+    pos = np.full(N, -1, np.int64)
+    pos[sel] = np.arange(sel.size)
+    hit = pos[edges[1]] >= 0
+    rows = feats[torch.from_numpy(edges[0][hit]).to(DEVICE)].cpu().numpy()
+    want = np.zeros((sel.size, d), np.float64)
+    np.add.at(want, pos[edges[1][hit]], rows.astype(np.float64))
+    agg_err = float(np.abs(got - want).max())
+    if not np.allclose(got, want, rtol=GNN_AGG_RTOL, atol=GNN_AGG_ATOL):
+        fail(f"gnn products: layer 1's aggregation off np.add.at by {agg_err:.3e} at "
+             f"{GNN_AGG_CHECK} destinations")
+    check_s = time.perf_counter() - t0
+    del batch, feats, lmask, model, run
+    free_bytes(torch)
+    timed = ms[GNN_WARMUP:]
+    p50 = float(np.percentile(timed, 50))
+    line = {"config": cfg.name, "shape": shape.name, "nodes": N, "edges": E,
+            "d_feat": d, "classes": cfg.n_classes, "labelled": GNN_PRODUCTS_TRAIN,
+            **gnn_timed(ms, losses),
+            "edges_per_s": E / (p50 / 1e3),
+            "max_memory_allocated": peak, "inputs_bytes": inputs,
+            "profile_wall_ms": timing["wall_ms"], "profile_busy_ms": timing["busy_ms"],
+            "device_busy_share": timing["busy_ms"] / timing["wall_ms"],
+            "top_device_ms": dict(sorted(prof.items(), key=lambda kv: -kv[1])[:8]),
+            "host_edges_s": edges_s, "agg_check_destinations": GNN_AGG_CHECK,
+            "agg_check_edges": int(hit.sum()), "agg_max_abs_err": agg_err,
+            "agg_check_s": check_s, "card": card}
+    print(f"[chip_smoke] gnn products: {json.dumps(line)}", flush=True)
+    return line
+
+
+def run_gnn_molecule(torch, card, bundle, shapes) -> dict:
+    """Phase 3d (e): molecule, graph classification: 128 graphs of 30
+    nodes (contiguous in ``graph_ids``) and 64 edges each, from one init
+    on the card and on the CPU, 1 + GNN_STEPS steps each; losses rtol
+    1e-5 and the parameters atol 1e-5 + rtol 1e-4 held card against CPU."""
+    from repro_torch import convert
+    from repro_torch.models import gnn as G
+    from repro_torch.models.common import param_dict
+
+    shape = shapes["molecule"]
+    cfg = gnn_shape_cfg(bundle, shape)
+    B, n, e = shape.batch, shape.n_nodes, shape.n_edges
+    rng = np.random.default_rng(0)
+    local = rng.integers(0, n, (2, B, e))
+    host = {
+        "feats": rng.normal(size=(B * n, shape.d_feat)).astype(np.float32),
+        "edges": (local + (np.arange(B) * n)[None, :, None]).reshape(2, B * e)
+        .astype(np.int32),
+        "edge_mask": np.ones(B * e, bool),
+        "graph_ids": np.repeat(np.arange(B, dtype=np.int32), n),
+        "labels": rng.integers(0, cfg.n_classes, B).astype(np.int32)}
+    init = convert.gnn_params_to_arrays(G.init_model(cfg, 0, "cpu"))
+    runs = {}
+    for dev in ("cpu", DEVICE):
+        model = G.GIN(cfg, convert.gnn_tree_from_arrays(init, cfg, dev))
+        run = gnn_trainer(torch, model, cfg)
+        b = gnn_upload(torch, host, dev)
+        losses, ms = zip(*(run(b) for _ in range(GNN_WARMUP + GNN_STEPS)))
+        runs[dev] = (model, list(losses), list(ms))
+    gnn_finite("molecule", runs[DEVICE][1])
+    if not np.allclose(runs[DEVICE][1], runs["cpu"][1], rtol=1e-5, atol=0):
+        fail(f"gnn molecule: card losses {runs[DEVICE][1]} != CPU {runs['cpu'][1]}")
+    worst = worst_ratio(torch, param_dict(runs[DEVICE][0]), param_dict(runs["cpu"][0]))
+    if worst > 1:
+        fail(f"gnn molecule: card parameters {worst:.2f}x the tolerance off the CPU's")
+    line = {"config": cfg.name, "shape": shape.name, "graphs": B, "nodes_per_graph": n,
+            "edges_per_graph": e, "d_feat": shape.d_feat, "classes": cfg.n_classes,
+            **gnn_timed(runs[DEVICE][2], runs[DEVICE][1]),
+            "cpu_losses": runs["cpu"][1], "worst_of_tolerance": worst, "card": card}
+    print(f"[chip_smoke] gnn molecule: {json.dumps(line)}", flush=True)
+    return line
+
+
+@contextlib.contextmanager
+def host_workers(n_lists: int):
+    """Two spawned worker processes, started before phase 3c so that they
+    run beside the LM phase on the card: phase 3d (c)'s store
+    (``gnn_sampled_store``) and phase 4's oracle (``boolean_oracle``).
+    Yields their futures by name; joins the workers on exit."""
+    import concurrent.futures
+    import multiprocessing
+
+    with concurrent.futures.ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        yield {"gnn": pool.submit(gnn_sampled_store, 0, GNN_SAMPLED_NODES,
+                                  GNN_SAMPLED_DEGREE, DEVICE),
+               "oracle": pool.submit(boolean_oracle, n_lists, CHECK_QUERIES)}
+
+
+def run_gnn_path(torch, card, job, counters) -> tuple[dict, dict]:
+    """Phase 3d: the GNN family (gin-tu) at full width (5 layers, d_hidden
+    64), its four shapes and the launcher, TF32 off.  minibatch_lg's
+    store is built by ``job``, the worker of ``host_workers``; the card
+    runs the launcher, cora, ogb_products and molecule, then samples and
+    trains the minibatch_lg batches.  Returns each piece's seconds and
+    the launches of ``counters``' kernels, summed over the launcher and
+    the sampler (each counted from 0)."""
+    from repro_torch.configs import get_arch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bundle = get_arch(GNN_ARCH)
+    shapes = {s.name: s for s in bundle.shapes}
+    sh = shapes["minibatch_lg"]
+    t_phase = time.perf_counter()
+    piece_s, lines = {}, {}
+    for name, fn in (("launcher", lambda *a: run_gnn_launcher(*a, counters)),
+                     ("cora", run_gnn_cora), ("products", run_gnn_products),
+                     ("molecule", run_gnn_molecule),
+                     ("sampled", lambda *a: run_gnn_sampled(*a, counters, job))):
+        t0 = time.perf_counter()
+        lines[name] = fn(torch, card, bundle, shapes)
+        piece_s[name] = time.perf_counter() - t0
+    launches = {k: lines["launcher"]["launches"][k] + lines["sampled"]["launches"][k]
+                for k in counters}
+    reduced = [{"what": "gin-tu minibatch_lg graph nodes", "was": sh.n_nodes,
+                "is": GNN_SAMPLED_NODES, "why": "the run's time limit: the store's "
+                "optimal partitioning takes ~1 us an edge on the host, ~115 s for "
+                "reddit's 232,965 nodes at its mean degree of 492, which the cut "
+                f"graph keeps (make_powerlaw_graph's avg_degree {GNN_SAMPLED_DEGREE})"},
+               {"what": "gin-tu minibatch_lg graph edges", "was": sh.n_edges,
+                "is": lines["sampled"]["graph_edges"], "why": "follows the nodes; "
+                "the batches' pads, and so the card's work, stay the cell's"}]
+    print(f"[chip_smoke] gnn reduced: {json.dumps(reduced)}", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    # the budget is the run's time limit shared out, not a correctness gate;
+    # the worker's seconds ran beside phase 3c
+    print(f"[chip_smoke] gnn phase: {json.dumps(piece_s)}; launches {launches}; "
+          f"{phase_s:.1f}s of its {GNN_PHASE_S:.0f}s budget, and "
+          f"{lines['sampled']['worker_s']:.1f}s in the host worker beside phase "
+          f"3c [{card}]", flush=True)
+    return piece_s, launches
+
+
 def bag_edge_cases(torch) -> dict:
     """embedding_bag against its plain version, bit for bit, at the edges
     of its tiling: B = BAG_EDGE_B bags of every K of BAG_EDGE_K over every
@@ -3559,6 +4165,7 @@ def main(argv=None) -> int:
     print(f"[chip_smoke] kernels built in {time.perf_counter()-t0:.1f}s",
           flush=True)
     ptx_divs = check_ptx()
+    phase_s = {"2 build": time.perf_counter() - t0}
 
     # 3. the recsys trainer at full width, counted; embedding_bag's check
     # runs while the path's tensors are alive, then they are freed but the
@@ -3581,40 +4188,61 @@ def main(argv=None) -> int:
           f"step, DIN and BST took "
           f"{sum(piece_s.values()) - dense_s:.1f}s; phase "
           f"{time.perf_counter()-t_phase:.1f}s", flush=True)
+    phase_s["3 recsys"] = time.perf_counter() - t_phase
 
     # 3c. the LM family at full width: qwen3-0.6b whole, moonshot and
-    # mixtral at full width and cut depth, the smoke configs, train_lm
-    run_lm_path(torch, card)
+    # mixtral at full width and cut depth, the smoke configs, train_lm;
+    # beside it, two worker processes: phase 3d's store and phase 4's
+    # scalar-loop oracle
+    with host_workers(args.n_lists) as jobs:
+        t_phase = time.perf_counter()
+        run_lm_path(torch, card)
+        phase_s["3c lm"] = time.perf_counter() - t_phase
 
-    # 4. the boolean path, counted
-    counters = {"decode_search": vk.decode_search,
-                "decode_blocks": vk.decode_blocks,
-                "ef_search": efk.ef_search}
-    res, ef_engine, launches = run_main_path(args.n_lists, torch, serve,
-                                             counters, QueryEngine)
-    if args.n_lists != N_LISTS:
-        print(f"[chip_smoke] depth cut: the boolean path ran --n-lists "
-              f"{args.n_lists} instead of {N_LISTS}", flush=True)
-    summary = {
-        "n_lists": args.n_lists, "postings": res["n_postings"],
-        "build_s": res["build_s"], "bits_per_int": res["bpi"],
-        "arena_device_bytes": res["arena_device_bytes"], "qps": res["qps"],
-        "batch_p50_ms": res["batch_p50_s"] * 1e3,
-        "batch_p99_ms": res["batch_p99_s"] * 1e3, "card": card,
-    }
-    print(f"[chip_smoke] boolean path: {json.dumps(summary)}", flush=True)
-    # DeviceList over the index's two longest lists, and the two examples
-    ex_launches = run_examples_path(res, torch, counters, card)
+        # 3d. the GNN family at full width: the launcher and gin-tu's four
+        # shapes
+        t_phase = time.perf_counter()
+        _, gnn_launches = run_gnn_path(torch, card, jobs["gnn"],
+                                       {"decode_blocks": vk.decode_blocks})
+        phase_s["3d gnn"] = time.perf_counter() - t_phase
 
-    bool_profile = profile_batches(torch, res["engine"].intersect_batch,
-                                   res["queries"], card, "boolean")
+        # 4. the boolean path, counted
+        t_phase = time.perf_counter()
+        counters = {"decode_search": vk.decode_search,
+                    "decode_blocks": vk.decode_blocks,
+                    "ef_search": efk.ef_search}
+        res, ef_engine, launches = run_main_path(args.n_lists, torch, serve,
+                                                 counters, QueryEngine,
+                                                 jobs["oracle"])
+        if args.n_lists != N_LISTS:
+            print(f"[chip_smoke] depth cut: the boolean path ran --n-lists "
+                  f"{args.n_lists} instead of {N_LISTS}", flush=True)
+        summary = {
+            "n_lists": args.n_lists, "postings": res["n_postings"],
+            "build_s": res["build_s"], "bits_per_int": res["bpi"],
+            "arena_device_bytes": res["arena_device_bytes"], "qps": res["qps"],
+            "batch_p50_ms": res["batch_p50_s"] * 1e3,
+            "batch_p99_ms": res["batch_p99_s"] * 1e3, "card": card,
+        }
+        print(f"[chip_smoke] boolean path: {json.dumps(summary)}", flush=True)
+        # DeviceList over the index's two longest lists, and the two examples
+        ex_launches = run_examples_path(res, torch, counters, card)
+
+        bool_profile = profile_batches(torch, res["engine"].intersect_batch,
+                                       res["queries"], card, "boolean")
+
+        phase_s["4 boolean"] = time.perf_counter() - t_phase
 
     # 5. the index build through the device partitioners, counted
+    t_phase = time.perf_counter()
     build_gaps, blaunches = run_build_path(
         args.n_lists, res, torch,
         {"gain_scan": gk.gain_scan, "partition_scan": psk.partition_scan}, card)
 
+    phase_s["5 index build"] = time.perf_counter() - t_phase
+
     # 6. the ranked path, counted
+    t_phase = time.perf_counter()
     all_counters = {**counters, "bm25_score_probe": bk.bm25_score_probe,
                     "bm25_score_rows": bk.bm25_score_rows,
                     "pivot_select": pk.pivot_select,
@@ -3638,18 +4266,27 @@ def main(argv=None) -> int:
     ranked_profile = profile_batches(torch, lambda b: reng.topk_batch(b, TOPK),
                                      rres["queries"], card, "ranked")
 
+    phase_s["6 ranked"] = time.perf_counter() - t_phase
+
     # 6b. the serving loop over the ranked path's engine, counted
+    t_phase = time.perf_counter()
     loop_launches = run_loop_path(rres, torch, serve, all_counters, card)
+    phase_s["6b loop"] = time.perf_counter() - t_phase
 
     # 6c. sharded serving: replicas, faults, checkpoints, recovery, counted
+    t_phase = time.perf_counter()
     shard_launches = run_shard_path(res, rres, torch, serve, all_counters,
                                     card)
+    phase_s["6c shards"] = time.perf_counter() - t_phase
 
     # 6d. the analyser on the card, and the full-size sync count
+    t_phase = time.perf_counter()
     analyze_launches = run_analyze_path(res, rres, torch, all_counters, card,
                                         ptx_divs)
+    phase_s["6d analyze"] = time.perf_counter() - t_phase
 
     # 7. each kernel against its plain version
+    t_phase = time.perf_counter()
     kernels = check_kernels(torch, res, ef_engine, launches, card,
                             bool_profile)
     kernels += check_ranked_kernels(torch, rres, rlaunches, card,
@@ -3661,8 +4298,12 @@ def main(argv=None) -> int:
         row["shard_launches"] = shard_launches.get(row["name"], 0)
         row["analyze_launches"] = analyze_launches.get(row["name"], 0)
         row["examples_launches"] = ex_launches.get(row["name"], 0)
+        row["gnn_launches"] = gnn_launches.get(row["name"], 0)
     if len(kernels) != N_KERNELS:
         fail(f"the kernels line has {len(kernels)} rows, not {N_KERNELS}")
+    phase_s["7 kernels"] = time.perf_counter() - t_phase
+    print(f"[chip_smoke] phase seconds: "
+          f"{json.dumps({k: round(v, 1) for k, v in phase_s.items()})}", flush=True)
     print(f"[chip_smoke] all phases passed in "
           f"{time.perf_counter()-t_start:.1f}s", flush=True)
 

@@ -325,7 +325,10 @@ class CheckpointManager:
                 nbytes += arr.nbytes
                 arr = arr.reshape(entry["shape"])
                 if dev is not None:
-                    arr = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+                    # ascontiguousarray gives a 0-d leaf one dimension: the
+                    # reshape takes it back to the saved shape
+                    arr = torch.from_numpy(np.ascontiguousarray(arr)).reshape(
+                        entry["shape"]).to(dev)
                 out.append(arr)
             tree = treedef.unflatten(out)
         if obs.enabled():

@@ -3,10 +3,9 @@
 Counterpart of ``repro/configs/__init__.py``.  Each arch module defines an
 ``ArchBundle`` with the full config of the reference, its reduced smoke
 config and its shape set; ``get_arch(id)`` and ``all_arch_ids()`` load
-only the archs the port runs: the four recsys archs (bst, dcn-v2, din,
-dlrm-rm2) and the five LM archs (command-r-35b, mixtral-8x22b,
-moonshot-v1-16b-a3b, qwen1.5-0.5b, qwen3-0.6b).  The GNN arch (gin-tu)
-comes with a later slice (ROADMAP Queue A 7: A7d).
+every arch of the reference: the four recsys archs (bst, dcn-v2, din,
+dlrm-rm2), the five LM archs (command-r-35b, mixtral-8x22b,
+moonshot-v1-16b-a3b, qwen1.5-0.5b, qwen3-0.6b) and the GNN arch (gin-tu).
 """
 
 from __future__ import annotations
@@ -50,10 +49,7 @@ def register(bundle: ArchBundle) -> ArchBundle:
 def get_arch(arch_id: str) -> ArchBundle:
     _load_all()
     if arch_id not in _REGISTRY:
-        raise NotImplementedError(
-            f"{arch_id!r} is not one of the port's archs {sorted(_REGISTRY)}: "
-            f"the GNN arch comes with a later slice of the port "
-            f"(ROADMAP Queue A 7: A7d)")
+        raise KeyError(f"unknown arch {arch_id!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]
 
 
@@ -75,6 +71,7 @@ def _load_all() -> None:
         dcn_v2,
         din,
         dlrm_rm2,
+        gin_tu,
         mixtral_8x22b,
         moonshot_v1_16b_a3b,
         qwen1_5_0_5b,

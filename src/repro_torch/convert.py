@@ -10,7 +10,9 @@ byte-identical arrays for the same corpus, so both routes meet.
 A model's parameters move the same way: ``recsys_params_to_arrays`` and
 ``recsys_params_from_arrays`` turn the port's recsys module into the
 reference's tree of arrays and back, ``lm_params_to_arrays`` and
-``lm_tree_from_arrays`` an LM's (``models.transformer``).
+``lm_tree_from_arrays`` an LM's (``models.transformer``),
+``gnn_params_to_arrays`` and ``gnn_tree_from_arrays`` a GIN's
+(``models.gnn``).
 """
 
 from __future__ import annotations
@@ -143,6 +145,40 @@ def lm_params_to_arrays(model) -> dict:
         key, _, leaf = name.partition(".")
         if leaf:
             tree.setdefault(key, {})[leaf] = x
+        else:
+            tree[key] = x
+    return tree
+
+
+def gnn_tree_from_arrays(tree: dict, cfg, device="cuda") -> dict:
+    """The reference's GIN parameter tree (``repro.models.gnn.init_params``
+    as numpy arrays: ``layers`` a list of seven-leaf dicts, ``head``,
+    ``head_b``) as the same tree of f32 tensors on ``device``, checked
+    leaf for leaf against ``cfg``'s shapes; ``GIN(cfg, tree)`` holds it.
+    Each leaf is a copy."""
+    from .api import resolve_device
+    from .checkpoint.manager import tree_map
+    from .models.gnn import shape_tree
+
+    dev = resolve_device(device)
+    params = tree_map(lambda x: torch.tensor(np.asarray(x, dtype=np.float32),
+                                             device=dev), tree)
+    got, want = tree_map(lambda t: tuple(t.shape), params), shape_tree(cfg)
+    if got != want:
+        raise ValueError(f"parameter tree does not fit {cfg.name}: {got} != {want}")
+    return params
+
+
+def gnn_params_to_arrays(model) -> dict:
+    """The reference's GIN parameter tree (numpy arrays) from the port's
+    ``GIN`` (``layers.0.w1`` becomes ``tree["layers"][0]["w1"]``)."""
+    tree: dict = {"layers": [{} for _ in model.layers]}
+    for name, p in model.named_parameters():
+        x = p.detach().cpu().numpy()
+        key, _, rest = name.partition(".")
+        if rest:
+            i, leaf = rest.split(".")
+            tree[key][int(i)][leaf] = x
         else:
             tree[key] = x
     return tree

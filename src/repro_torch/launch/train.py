@@ -1,29 +1,33 @@
-"""End-to-end training driver of the port: the recsys and LM archs.
+"""End-to-end training driver of the port: the recsys, LM and GNN archs.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
       --steps 50 --smoke --device cpu        # reduced config, CPU-runnable
   PYTHONPATH=src python -m repro_torch.launch.train --arch din --smoke \
       --steps 50 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gin-tu --smoke \
+      --steps 6 --save-every 2 --fail-at 3 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch dcn-v2 --steps 100 --smoke
 
 Counterpart of ``repro/launch/train.py``, with its flags and defaults:
 the data pipeline (recsys: ``make_ctr_batch`` from ``default_rng(seed +
 step)``; LM: ``ShardedBatchLoader.batch_at(step)`` over a ``TokenStream``
-with an OptVB-compressed shard index; either uploaded once a step), the
-AdamW train step, checkpoint/restart with a simulated node failure
-(``--fail-at``), the straggler watchdog and the restart statistics.
-``--model-scale`` scales a smoke LM up (``examples/train_lm.py`` sizes its
-own ~100M model).  Runs on the card unless ``--device cpu``.  The GNN arch
-comes with a later slice of the port (ROADMAP Queue A 7: A7d) and raises.
+with an OptVB-compressed shard index; GNN: a 256-node power-law graph in a
+``CompressedGraphStore``, a 2-hop subgraph of 32 seeds sampled a step;
+each uploaded once a step), the AdamW train step, checkpoint/restart with
+a simulated node failure (``--fail-at``), the straggler watchdog and the
+restart statistics.  ``--model-scale`` scales a smoke LM up
+(``examples/train_lm.py`` sizes its own ~100M model); ``--batch`` and
+``--seq-len`` do not reach the GNN, as in the reference.  Runs on the card
+unless ``--device cpu``.
 
 The training state is ``(params, opt)``, a tree of tensors in the
 reference's structure: ``params`` the reference's parameter tree, ``opt``
 ``{"count", "m", "v"}`` with ``m`` and ``v`` trees of the same shape, so
 ``CheckpointManager`` writes the reference's leaves in the reference's
 order and a checkpoint crosses between the packages.  Each step wraps the
-state's current leaves in a ``Recsys`` or ``Transformer`` module (no copy)
-and updates them in place: after a restart it trains on the restored
-leaves.
+state's current leaves in a ``Recsys``, ``Transformer`` or ``GIN`` module
+(no copy) and updates them in place: after a restart it trains on the
+restored leaves.
 """
 
 from __future__ import annotations
@@ -39,10 +43,16 @@ from ..api import resolve_device
 from ..checkpoint import CheckpointManager
 from ..checkpoint.manager import tree_map
 from ..configs import get_arch
-from ..convert import lm_tree_from_arrays, recsys_tree_from_arrays
+from ..convert import (
+    gnn_tree_from_arrays,
+    lm_tree_from_arrays,
+    recsys_tree_from_arrays,
+)
+from ..data.graph_data import CompressedGraphStore, make_powerlaw_graph
 from ..data.lm_data import ShardedBatchLoader, TokenStream
 from ..data.recsys_data import make_ctr_batch
 from ..distributed import FaultTolerantRunner, SimulatedFailure
+from ..models import gnn as G
 from ..models import recsys as R
 from ..models import transformer as T
 from ..models.common import tree_size
@@ -116,6 +126,44 @@ def _lm_setup(cfg, batch: int, seq_len: int, seed: int, device, params=None):
     return tree, T.loss_fn, batches
 
 
+def _gnn_setup(cfg, seed: int, device, params=None):
+    """(parameter tree, loss, batches), as the reference's: a 256-node
+    power-law graph (average degree 6) in a ``CompressedGraphStore`` and
+    features and labels for every node, all from ``default_rng(seed)``;
+    ``batches(step)`` samples 32 seeds and their 2-hop subgraph (fanouts
+    5, 5) from ``default_rng(seed + step)``, pads its edges to 2,048 and
+    uploads the batch.  As in the reference, the subgraph's edges are in
+    its local node ids and index the whole graph's ``feats``, and the
+    label mask sets the seeds' global ids."""
+    rng = np.random.default_rng(seed)
+    n, e_pad = 256, 2048
+    store = CompressedGraphStore(make_powerlaw_graph(rng, n, avg_degree=6), device)
+    feats = rng.normal(size=(n, cfg.d_in)).astype(np.float32)
+    labels = rng.integers(0, cfg.n_classes, n).astype(np.int32)
+
+    def batches(step):
+        r = np.random.default_rng(seed + step)
+        seeds = r.choice(n, size=32, replace=False)
+        nodes, edges = store.sample_subgraph(r, seeds, fanouts=(5, 5))
+        e = np.zeros((2, e_pad), np.int32)
+        m = np.zeros((e_pad,), bool)
+        k = min(edges.shape[1], e_pad)
+        e[:, :k] = edges[:, :k]
+        m[:k] = True
+        lm = np.zeros((n,), bool)
+        lm[nodes[: len(seeds)]] = True
+        return _upload({"feats": feats, "edges": e, "edge_mask": m,
+                        "labels": labels, "label_mask": lm}, device)
+
+    if params is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        tree = G.init_params(gen, cfg)
+    else:
+        tree = gnn_tree_from_arrays(params, cfg, device)
+    return tree, G.loss_fn, batches
+
+
 def build_training(arch: str, smoke: bool, batch: int, seq_len: int = 128,
                    model_scale: int = 1, seed: int = 0, device="cuda",
                    params=None):
@@ -127,9 +175,9 @@ def build_training(arch: str, smoke: bool, batch: int, seq_len: int = 128,
     the batches' sequence length and ``model_scale > 1`` scales the config
     as the reference does (twice the layers, ``model_scale`` times
     ``d_model``, ``d_ff`` and ``d_head``, a 32,768-word vocab); the recsys
-    archs do not use them.  ``params``: the reference's tree of arrays to
-    start from instead of ``seed``'s draw.  An arch the port does not
-    register raises ``NotImplementedError`` (``configs.get_arch``)."""
+    archs do not use them, nor does the GNN arch, whose batch is its
+    sampler's (``_gnn_setup``).  ``params``: the reference's tree of arrays to
+    start from instead of ``seed``'s draw."""
     bundle = get_arch(arch)
     cfg = bundle.smoke if smoke else bundle.full
     if bundle.family == "lm" and model_scale > 1:
@@ -146,9 +194,12 @@ def build_training(arch: str, smoke: bool, batch: int, seq_len: int = 128,
     if bundle.family == "lm":
         tree, loss, batches = _lm_setup(cfg, batch, seq_len, seed, dev, params)
         module = T.Transformer
-    else:
+    elif bundle.family == "recsys":
         tree, loss, batches = _recsys_setup(cfg, batch, seed, dev, params)
         module = R.Recsys
+    else:
+        tree, loss, batches = _gnn_setup(cfg, seed, dev, params)
+        module = G.GIN
     step = state_step(module, cfg, make_train_step(loss, cfg))
     return (tree, adamw_tree_init(tree)), step, batches, cfg
 

@@ -1,2 +1,2 @@
-"""Models of the port: the recsys family (DCN-v2, DLRM, DIN, BST) and the
-decoder-only transformer LM."""
+"""Models of the port: the recsys family (DCN-v2, DLRM, DIN, BST), the
+decoder-only transformer LM and the GNN family (GIN)."""

@@ -95,6 +95,23 @@ def test_checkpoint_roundtrip_and_retention(tmp_path):
     assert np.array_equal(got["ids"], tree["ids"])
 
 
+def test_restore_keeps_every_leaf_shape(tmp_path):
+    """0-d leaves (GIN's ``eps``, a step count) come back 0-d, on the
+    target's device and placed on an explicit one, as do (1,), (0,) and
+    [2, 3] leaves."""
+    mgr = CheckpointManager(tmp_path, async_save=False)
+    tree = {"eps": torch.tensor(0.25), "count": torch.tensor(3, dtype=torch.int32),
+            "one": torch.ones(1), "none": torch.zeros(0), "w": torch.ones(2, 3),
+            "host": np.float32(2.0)}
+    mgr.save(1, tree)
+    for devices in (None, "cpu"):
+        got, _ = mgr.restore(tree, devices=devices)
+        for k, v in tree.items():
+            assert tuple(got[k].shape) == tuple(np.shape(v)), k
+            assert np.array_equal(np.asarray(got[k]), np.asarray(v)), k
+        assert isinstance(got["eps"], torch.Tensor)
+
+
 def test_checkpoint_async(tmp_path):
     mgr = CheckpointManager(tmp_path, keep=1, async_save=True)
     tree = {"x": torch.ones((8, 8))}

@@ -123,9 +123,9 @@ def test_configs_equal_the_reference_field_for_field(arch):
     assert get_arch(arch).shapes == RECSYS_SHAPES
     assert [dataclasses.asdict(s) for s in RECSYS_SHAPES] == [
         dataclasses.asdict(s) for s in REF_SHAPES]
-    # the recsys archs beside the LM family's five (A7c)
+    # the recsys archs beside the LM family's five (A7c) and gin-tu (A7d)
     assert [a for a in all_arch_ids() if get_arch(a).family == "recsys"] == ARCHS
-    assert len(all_arch_ids()) == 9
+    assert len(all_arch_ids()) == 10
 
 
 def test_full_dcn_v2_counts():
@@ -229,14 +229,10 @@ def test_dcn_and_dlrm_init_from_seed_0_is_unchanged(arch):
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "gin-tu"])
 def test_lm_and_gnn_archs_wait_for_their_slice(arch):
-    """The GNN arch waits for its slice (A7d); the LM archs have landed
-    (A7c): the launcher builds them."""
+    """The LM archs (A7c) and the GNN arch (A7d) have landed: the launcher
+    builds them and takes a step."""
     from repro_torch.launch.train import build_training
 
-    if arch == "gin-tu":
-        with pytest.raises(NotImplementedError, match="Queue A 7"):
-            build_training(arch, smoke=True, batch=4, device="cpu")
-        return
     state, step, batches, cfg = build_training(arch, smoke=True, batch=4, seq_len=16,
                                                device="cpu")
     assert cfg == get_arch(arch).smoke and int(state[1]["count"]) == 0

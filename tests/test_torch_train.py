@@ -8,7 +8,9 @@ each rounded once more or less); table rows no batch touched exactly; the
 AdamW-trained parameters atol 1e-5 + rtol 1e-4 on every element
 (``test_torch_recsys._assert_params_close`` without its allowance); batches, run
 statistics, checkpoints read back and a restarted run against an
-unbroken one exactly.
+unbroken one exactly.  The GNN half: batches exactly, losses rtol 1e-6,
+gradient norms rtol 1e-5, parameters atol 1e-5 + rtol 1e-4 on every
+element.
 """
 
 import dataclasses
@@ -149,7 +151,7 @@ def test_main_with_a_failure_reports_the_reference_run(monkeypatch, capsys, tmp_
         assert np.array_equal(np.asarray(a), np.asarray(b))
 
 
-@pytest.mark.parametrize("arch", ["dcn-v2", "bst"])
+@pytest.mark.parametrize("arch", ["dcn-v2", "bst", "gin-tu"])
 def test_reference_checkpoint_restores_into_the_port_state(arch, monkeypatch, capsys,
                                                            tmp_path):
     ckpt = tmp_path / "ref"
@@ -189,6 +191,7 @@ def test_named_leaves_follow_the_checkpoint_flatten():
 @pytest.mark.parametrize("call", [
     lambda: ttrain.build_training("din", True, 4),
     lambda: ttrain.build_training("qwen3-0.6b", True, 4),
+    lambda: ttrain.build_training("gin-tu", True, 4),
     lambda: ttrain.main(["--arch", "bst", "--smoke", "--steps", "1"]),
 ])
 def test_launcher_needs_a_card_unless_told_cpu(call, monkeypatch):
@@ -340,3 +343,81 @@ def test_lm_main_with_a_failure_reports_the_reference_run(monkeypatch, capsys, t
     assert (clean_stats.restarts, clean_stats.steps_completed) == (0, 6)
     for a, b in zip(tree_flatten(state)[0], tree_flatten(clean)[0]):
         assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+# --------------------------------------------------------------------------
+# the GNN half (models.gnn, data.graph_data) against the reference
+# --------------------------------------------------------------------------
+
+def _gnn_arrays(seed=0):
+    from repro.models import gnn as RG
+
+    params = RG.init_params(jax.random.PRNGKey(seed), ref_get_arch("gin-tu").smoke)
+    return params, jax.tree_util.tree_map(np.asarray, params)
+
+
+def test_gnn_build_training_matches_the_reference():
+    """The launcher's GNN half at the smoke config: the sampled batches bit
+    for bit (the 256-node store, the subgraph in local ids over the whole
+    graph's features, the seeds' global ids in the label mask), then five
+    steps against the reference's jitted ones."""
+    rstate, rstep, rbatches, rcfg = rtrain.build_training("gin-tu", True, 8, 128)
+    arrays = jax.tree_util.tree_map(np.asarray, rstate[0])
+    state, step, batches, cfg = ttrain.build_training("gin-tu", True, 8, device="cpu",
+                                                      params=arrays)
+    assert cfg == get_arch("gin-tu").smoke
+    for s in range(5):
+        rb, tb = rbatches(s), batches(s)
+        assert rb.keys() == tb.keys() == {"feats", "edges", "edge_mask", "labels",
+                                          "label_mask"}
+        for k in rb:
+            assert tb[k].numpy().dtype == rb[k].dtype, k
+            assert np.array_equal(tb[k].numpy(), rb[k]), k
+        assert tb["label_mask"].sum() == 32 and tb["edge_mask"].any()
+        rstate, rm = rstep(rstate, rb)
+        state, m = step(state, tb)
+        np.testing.assert_allclose(float(m["loss"]), float(rm["loss"]), rtol=1e-6)
+        np.testing.assert_allclose(float(m["grad_norm"]), float(rm["grad_norm"]),
+                                   rtol=1e-5)
+    assert state[1]["count"] == int(rstate[1]["count"]) == 5
+    _assert_params_close(ttrain.named_leaves(state[0]), rstate[0], atol=1e-5, rtol=1e-4)
+    assert list(ttrain.named_leaves(state[1]["m"])) == list(_flat(rstate[1]["m"]))
+
+
+def test_gnn_main_with_a_failure_reports_the_reference_run(monkeypatch, capsys,
+                                                            tmp_path):
+    flags = ["--arch", "gin-tu", "--smoke", "--steps", "6", "--save-every", "2",
+             "--fail-at", "3"]
+    ref_stats = _ref_main(monkeypatch, capsys, [*flags, "--ckpt-dir", str(tmp_path / "ref")])
+    _, arrays = _gnn_arrays()
+    state, stats = ttrain.main([*flags, "--ckpt-dir", str(tmp_path / "port"),
+                                "--device", "cpu"], params=arrays)
+    out = capsys.readouterr().out
+    assert repr(stats) == ref_stats
+    assert (stats.restarts, stats.wasted_steps, stats.steps_completed) == (1, 1, 7)
+    assert "[train] RESTART #1 from step 2" in out
+    assert "[train] arch=gin-tu params=422" in out
+    # the reference's final checkpoint, read into the port's state
+    ref_state, at = CheckpointManager(str(tmp_path / "ref")).restore(state)
+    assert at == 6 and int(ref_state[1]["count"]) == state[1]["count"] == 6
+    _assert_params_close(ttrain.named_leaves(state[0]), ref_state[0], atol=1e-5,
+                         rtol=1e-4)
+    # the same steps without the failure: the restart lost nothing
+    clean, clean_stats = ttrain.main(
+        ["--arch", "gin-tu", "--smoke", "--steps", "6", "--save-every", "2",
+         "--ckpt-dir", str(tmp_path / "clean"), "--device", "cpu"], params=arrays)
+    assert (clean_stats.restarts, clean_stats.steps_completed) == (0, 6)
+    for a, b in zip(tree_flatten(state)[0], tree_flatten(clean)[0]):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_gnn_named_leaves_follow_the_checkpoint_flatten():
+    from repro_torch.models import gnn as TG
+
+    state, *_ = ttrain.build_training("gin-tu", True, 4, device="cpu")
+    named = ttrain.named_leaves(state[0])
+    model = TG.GIN(get_arch("gin-tu").smoke, state[0])
+    assert list(named) == list(param_dict(model)) == list(_flat(_gnn_arrays()[0]))
+    assert [id(x) for x in named.values()] == [id(x) for x in tree_flatten(state[0])[0]]
+    assert [p.data_ptr() for p in param_dict(model).values()] == [
+        x.data_ptr() for x in named.values()]

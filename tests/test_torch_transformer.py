@@ -149,10 +149,10 @@ def test_lm_shapes_and_registry():
             for s in ref_lm_shapes(full_only))
     assert lm_shapes(True)[-1].skip.startswith("pure full-attention arch")
     assert lm_shapes(False)[-1].skip == ""
-    assert len(all_arch_ids()) == 9
+    assert len(all_arch_ids()) == 10
     assert set(LM_ARCHS) <= set(all_arch_ids())
-    with pytest.raises(NotImplementedError, match="A7d"):
-        get_arch("gin-tu")
+    assert get_arch("gin-tu").family == "gnn"
+    assert get_arch("gin-tu").full.name == "gin-tu"
 
 
 def test_cast_tree_matches_the_reference():
