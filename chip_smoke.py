@@ -147,7 +147,10 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    partitioners are printed;
 6. ranked   -- ``serve --ranked --topk 10 --resident kernel`` over the same
    full-size corpus with its term frequencies, 512 queries of arity 2 in
-   batches of 64; then 2 batches through ``resident="mirror"`` (which
+   batches of 64, run in ``serve.run``'s two halves: ``serve.build_ranked``
+   (corpus, frequencies, index, queries) in a worker process beside phase
+   3c, then ``serve.check_device`` and ``serve.serve_ranked`` on the card;
+   then 2 batches through ``resident="mirror"`` (which
    scores the whole arena once) and ``contributions()`` on 4,096 (term,
    doc) pairs, through the ``auto`` arena and through the ``ef`` arena of
    the same index, all with the launch counts set to 0 just before and
@@ -213,6 +216,34 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    full size:`` JSON line); a pair not in ``FULL_SYNC_SITES`` fails, and
    the answers must equal the same batch's served again without the
    debug mode.  The phase prints its seconds against its budget of 60 s;
+6e. mesh    -- the several-device machinery on this one card: an NCCL
+   group of one rank on ``cuda:0`` (a file store; NCCL takes one rank a
+   card) and ``launch.mesh.make_host_mesh(1, 1)`` over it, at full width,
+   each path held to its counterpart without a mesh: (a) the sparse
+   DCN-v2 step with the table owner-routed (``table_axes=("model",
+   "data")``, ``batch_axes=("data", "model")``; the table and accumulator
+   kept as this rank's row block, ``shard_rows``, the whole table on one
+   rank) beside the local step,
+   both from seed 0 on phase 3's batches (a warm-up and 5 timed steps,
+   then again under deterministic algorithms for the holds): the routed
+   gather bit-equal to ``index_select``, no row dropped, table
+   and accumulator within 1e-5, untouched rows bit-unchanged (``mesh
+   routed:``); (b) ``optim.compress.compressed_psum`` on the dense step's
+   gradient tree (438,776,258 parameters), 30 applications: output equal
+   to q * scale, output + residual within one ulp of gradient +
+   residual, the time-averaged output within 1% (``mesh psum:``); (c)
+   ``loss_fn_dst_sharded`` on ogb_products whole (phase 3d's graph from
+   its seeds, edges grouped with S = 1), loss and gradients beside
+   ``loss_fn``'s: at f32 within 1e-5 and 1e-4, at bf16 messages within a
+   relative L2 of 2e-2 (``mesh gnn:``); (d) moonshot-v1-16b-a3b at full
+   width and phase 3c's depth, f32: a forward over 4,096 tokens with
+   ``moe_shard_map=True`` inside ``set_mesh`` (the TP-in-expert branch,
+   its psum over the group) within 1e-4 of ``moe_ffn``'s (``mesh moe:``);
+   (e) ``python -m repro_torch.launch.dryrun`` for qwen3-0.6b train_4k,
+   gin-tu ogb_products and dcn-v2 train_batch at ``--mesh single``, run by
+   a host worker that sees no card, started before phase 3c: every record
+   ``ok``, their roofline terms printed (``mesh dryrun:``).  The phase
+   prints its seconds against its budget of 90 s;
 7. kernels  -- each kernel against its plain PyTorch version on the card,
    at the main paths' shapes, over the arenas and corpus they built
    (integer contracts and the f32 BM25 contract: zero mismatches allowed),
@@ -242,10 +273,12 @@ CUDA card, or if the port's sources are not beside this script.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import json
 import os
+import pickle
 import subprocess
 import sys
 import time
@@ -467,6 +500,18 @@ GNN_AGG_RTOL, GNN_AGG_ATOL = 1e-5, 1e-5
 # 5.0e-6 and 9.9e-6 apart (NVIDIA H100 80GB HBM3)
 GNN_LOGITS_ATOL = 3e-5
 GNN_PHASE_S = 60.0
+# phase 6e, the mesh paths on one card: a 1 x 1 mesh over an NCCL group of
+# one rank (NCCL takes one rank a card), at full width, held to the paths
+# without a mesh; its budget is the run's time limit shared out
+MESH_PHASE_S = 90.0
+MESH_PSUM_APPS = 30  # compressed_psum applications to one gradient
+MESH_ROUTED_ATOL = 1e-5  # table and accumulator (test_sharded_paths.py:119)
+MESH_GNN_LOSS_ATOL, MESH_GNN_GRAD_ATOL = 1e-5, 1e-4  # test_sharded_paths.py:104
+MESH_GNN_BF16_REL = 2e-2  # bf16 messages: the loss and the gradients' relative L2
+MESH_MOE_TOKENS = 4096
+MESH_MOE_ATOL = 1e-4  # test_sharded_paths.py:62
+MESH_DRYRUN = (("qwen3-0.6b", "train_4k"), ("gin-tu", "ogb_products"),
+               ("dcn-v2", "train_batch"))
 DEVICE = "cuda"
 
 
@@ -639,6 +684,29 @@ def boolean_oracle(n_lists: int, n_check: int) -> dict:
     answers = [idx.intersect_scalar(q) for q in queries]
     return {"queries": queries, "answers": answers, "digest": index_digest(idx),
             "build_s": build_s, "scalar_s": time.perf_counter() - t0}
+
+
+def ranked_index(argv, path: str) -> dict:
+    """Phase 6's host half, run in a worker process beside phase 3c:
+    ``serve.build_ranked``, the build half of ``serve.run --ranked``, from
+    ``argv``.  Pickles the index and the queries to ``path`` and returns
+    the other keys and ``path``."""
+    sys.path.insert(0, SRC)
+    from repro_torch.launch import serve
+
+    built = serve.build_ranked(serve.parse_args(argv))
+    # the index (with its arena, ~2 GB) goes through a file, read when phase
+    # 6 starts: a result this large unpickled by the pool's thread of the
+    # main process while phase 3c runs holds its GIL and slows phase 3c
+    with open(path, "wb") as f:
+        pickle.dump({"index": built.pop("index"), "queries": built.pop("queries")},
+                    f, protocol=5)
+    return {"path": path, **built}
+
+
+def ranked_argv(n_queries: int) -> list:
+    return ["--n-lists", str(N_LISTS), *RANKED_ARGS, "--queries", str(n_queries),
+            "--device", DEVICE]
 
 
 def run_main_path(n_lists, torch, serve, counters, QueryEngine, oracle_job):
@@ -1145,18 +1213,30 @@ def contrib_pairs(rng, engine, n: int):
     return terms[order], docs[order]
 
 
-def run_ranked_path(n_queries, torch, serve, counters, card):
+def run_ranked_path(n_queries, torch, serve, counters, card, job):
     """Phase 6; returns (the serve summary, the mirror engine, the
-    contribution pairs, launches)."""
+    contribution pairs, launches).  ``serve.run --ranked`` in its two
+    halves: ``serve.build_ranked`` in a worker beside phase 3c (``job``,
+    ``ranked_index``), then ``serve.check_device`` and
+    ``serve.serve_ranked`` here, on the card."""
     from repro_torch.ranked.bm25 import exhaustive_topk
     from repro_torch.ranked.topk_engine import TopKEngine
 
     for c in counters.values():
         c.launches = 0
-    argv = ["--n-lists", str(N_LISTS), *RANKED_ARGS, "--queries",
-            str(n_queries), "--device", DEVICE]
+    argv = ranked_argv(n_queries)
     print(f"[chip_smoke] ranked path: serve {' '.join(argv)}", flush=True)
-    res = serve.run(serve.parse_args(argv))
+    args = serve.parse_args(argv)
+    serve.check_device(args)
+    built = job.result()
+    t0 = time.perf_counter()
+    with open(built["path"], "rb") as f:
+        built.update(pickle.load(f))
+    os.remove(built.pop("path"))
+    print(f"[chip_smoke] ranked index: built in a worker beside phase 3c "
+          f"(freqs {built['freqs_s']:.1f}s, build {built['build_s']:.1f}s), "
+          f"read back in {time.perf_counter() - t0:.1f}s", flush=True)
+    res = {**built, **serve.serve_ranked(args, built["index"], built["queries"])}
     idx, engine, queries = res["index"], res["engine"], res["queries"]
     if (engine.resident != "kernel"
             or engine.device.type != torch.device(DEVICE).type):
@@ -3447,18 +3527,19 @@ def run_lm_example(torch, card) -> dict:
     return line
 
 
-def run_lm_path(torch, card) -> dict:
-    """Phase 3c: the LM family on the card; returns each piece's seconds."""
+def run_lm_path(torch, card) -> tuple[dict, dict]:
+    """Phase 3c: the LM family on the card; returns each piece's seconds
+    and the lines of qwen3, moonshot and mixtral."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # the runs held against the CPU sum bf16 products in f32 throughout
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t_phase = time.perf_counter()
-    reduced, piece_s = [], {}
+    reduced, piece_s, lines = [], {}, {}
     for name, fn in (("qwen3", run_lm_qwen3), ("moonshot", run_lm_moonshot),
                      ("mixtral", run_lm_mixtral)):
         t0 = time.perf_counter()
-        fn(torch, card, reduced)
+        lines[name] = fn(torch, card, reduced)
         piece_s[name] = time.perf_counter() - t0
     for name, fn in (("smoke", run_lm_smoke), ("example", run_lm_example)):
         t0 = time.perf_counter()
@@ -3470,7 +3551,7 @@ def run_lm_path(torch, card) -> dict:
     # gate: a slow host prints over it, and the depth is cut in the source
     print(f"[chip_smoke] lm phase: {json.dumps(piece_s)}; {phase_s:.1f}s of "
           f"its {LM_PHASE_S:.0f}s budget [{card}]", flush=True)
-    return piece_s
+    return piece_s, lines
 
 
 def gnn_shape_cfg(bundle, shape):
@@ -3788,6 +3869,27 @@ def run_gnn_sampled(torch, card, bundle, shapes, counters, job) -> dict:
     return line
 
 
+def products_batch(torch, cfg, shape):
+    """ogb_products whole: edges from numpy on the host (seed 0), features,
+    labels and a training split's label mask from a generator on the card
+    (seed 0) -> (batch on the card, the edges on the host, their seconds)."""
+    N, E, d = shape.n_nodes, shape.n_edges, shape.d_feat
+    t0 = time.perf_counter()
+    edges = np.random.default_rng(0).integers(0, N, (2, E), dtype=np.int32)
+    edges_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    feats = torch.randn((N, d), generator=gen, device=DEVICE)
+    lmask = torch.zeros(N, dtype=torch.bool, device=DEVICE)
+    lmask[torch.randperm(N, generator=gen, device=DEVICE)[:GNN_PRODUCTS_TRAIN]] = True
+    batch = {"feats": feats, "edges": torch.from_numpy(edges).to(DEVICE),
+             "edge_mask": torch.ones(E, dtype=torch.bool, device=DEVICE),
+             "labels": torch.randint(0, cfg.n_classes, (N,), generator=gen,
+                                     device=DEVICE, dtype=torch.int32),
+             "label_mask": lmask}
+    return batch, edges, edges_s
+
+
 def run_gnn_products(torch, card, bundle, shapes) -> dict:
     """Phase 3d (d): ogb_products, full batch at its full size on one card:
     edges from numpy on the host, features, labels and a training split's
@@ -3802,19 +3904,8 @@ def run_gnn_products(torch, card, bundle, shapes) -> dict:
     cfg = gnn_shape_cfg(bundle, shape)
     N, E, d = shape.n_nodes, shape.n_edges, shape.d_feat
     free_bytes(torch)
-    t0 = time.perf_counter()
-    edges = np.random.default_rng(0).integers(0, N, (2, E), dtype=np.int32)
-    edges_s = time.perf_counter() - t0
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(0)
-    feats = torch.randn((N, d), generator=gen, device=DEVICE)
-    lmask = torch.zeros(N, dtype=torch.bool, device=DEVICE)
-    lmask[torch.randperm(N, generator=gen, device=DEVICE)[:GNN_PRODUCTS_TRAIN]] = True
-    batch = {"feats": feats, "edges": torch.from_numpy(edges).to(DEVICE),
-             "edge_mask": torch.ones(E, dtype=torch.bool, device=DEVICE),
-             "labels": torch.randint(0, cfg.n_classes, (N,), generator=gen,
-                                     device=DEVICE, dtype=torch.int32),
-             "label_mask": lmask}
+    batch, edges, edges_s = products_batch(torch, cfg, shape)
+    feats, lmask = batch["feats"], batch["label_mask"]
     model = G.init_model(cfg, 1, DEVICE)
     run = gnn_trainer(torch, model, cfg)
     torch.cuda.synchronize()
@@ -3911,29 +4002,38 @@ def run_gnn_molecule(torch, card, bundle, shapes) -> dict:
 
 
 @contextlib.contextmanager
-def host_workers(n_lists: int):
-    """Two spawned worker processes, started before phase 3c so that they
+def host_workers(n_lists: int, ranked_queries: int):
+    """Three spawned worker processes, started before phase 3c so that they
     run beside the LM phase on the card: phase 3d (c)'s store
-    (``gnn_sampled_store``) and phase 4's oracle (``boolean_oracle``).
-    Yields their futures by name; joins the workers on exit."""
+    (``gnn_sampled_store``), phase 4's oracle (``boolean_oracle``) and
+    phase 6's index (``ranked_index``).  Yields their futures by name;
+    joins the workers on exit."""
     import concurrent.futures
     import multiprocessing
+    import shutil
+    import tempfile
 
-    with concurrent.futures.ProcessPoolExecutor(
-            2, mp_context=multiprocessing.get_context("spawn")) as pool:
-        yield {"gnn": pool.submit(gnn_sampled_store, 0, GNN_SAMPLED_NODES,
-                                  GNN_SAMPLED_DEGREE, DEVICE),
-               "oracle": pool.submit(boolean_oracle, n_lists, CHECK_QUERIES)}
+    d = tempfile.mkdtemp(prefix="chip_smoke_ranked_")
+    try:
+        with concurrent.futures.ProcessPoolExecutor(
+                3, mp_context=multiprocessing.get_context("spawn")) as pool:
+            yield {"gnn": pool.submit(gnn_sampled_store, 0, GNN_SAMPLED_NODES,
+                                      GNN_SAMPLED_DEGREE, DEVICE),
+                   "oracle": pool.submit(boolean_oracle, n_lists, CHECK_QUERIES),
+                   "ranked": pool.submit(ranked_index, ranked_argv(ranked_queries),
+                                         os.path.join(d, "ranked.pkl"))}
+    finally:
+        atexit.register(shutil.rmtree, d, True)
 
 
-def run_gnn_path(torch, card, job, counters) -> tuple[dict, dict]:
+def run_gnn_path(torch, card, job, counters) -> tuple[dict, dict, dict]:
     """Phase 3d: the GNN family (gin-tu) at full width (5 layers, d_hidden
     64), its four shapes and the launcher, TF32 off.  minibatch_lg's
     store is built by ``job``, the worker of ``host_workers``; the card
     runs the launcher, cora, ogb_products and molecule, then samples and
     trains the minibatch_lg batches.  Returns each piece's seconds and
     the launches of ``counters``' kernels, summed over the launcher and
-    the sampler (each counted from 0)."""
+    the sampler (each counted from 0), and each piece's line."""
     from repro_torch.configs import get_arch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3967,7 +4067,417 @@ def run_gnn_path(torch, card, job, counters) -> tuple[dict, dict]:
           f"{phase_s:.1f}s of its {GNN_PHASE_S:.0f}s budget, and "
           f"{lines['sampled']['worker_s']:.1f}s in the host worker beside phase "
           f"3c [{card}]", flush=True)
-    return piece_s, launches
+    return piece_s, launches, lines
+
+
+# ==========================================================================
+# phase 6e: the mesh paths on one card over NCCL
+# ==========================================================================
+
+@contextlib.contextmanager
+def one_rank_group(torch):
+    """An NCCL group of one rank on ``cuda:0`` (``gloo`` when DEVICE is the
+    CPU, for a rehearsal; a file store in a temporary directory, a 60 s
+    timeout) and ``make_host_mesh(1, 1)`` over it; destroyed on exit."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_group_")
+    store = dist.FileStore(os.path.join(d, "store"), 1)
+    timeout = datetime.timedelta(seconds=60)
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                timeout=timeout, device_id=torch.device("cuda", 0))
+    else:
+        dist.init_process_group("gloo", store=store, rank=0, world_size=1,
+                                timeout=timeout)
+    try:
+        yield make_host_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def dryrun_worker():
+    """Phase 6e (e)'s host half, started before phase 3c so that it runs
+    beside it: ``python -m repro_torch.launch.dryrun`` for each of
+    MESH_DRYRUN's cells at ``--mesh single``, one after the other, in a
+    thread driving subprocesses that see no card (killed at exit if still
+    running).  Returns a function that waits and returns ``(records,
+    seconds)``."""
+    import tempfile
+    import threading
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=SRC,
+               OMP_NUM_THREADS="2")
+    state = {"procs": [], "err": []}
+
+    def drive():
+        t0 = time.perf_counter()
+        for arch, shape in MESH_DRYRUN:
+            p = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                 "--shape", shape, "--mesh", "single", "--out", out],
+                cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+            state["procs"].append(p)
+            log, _ = p.communicate()
+            if p.returncode != 0:
+                state["err"].append(f"{arch} {shape}: exit {p.returncode}: {log[-2000:]}")
+        state["s"] = time.perf_counter() - t0
+
+    def stop():
+        for p in state["procs"]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    atexit.register(stop)
+    th = threading.Thread(target=drive, daemon=True)
+    th.start()
+
+    def wait():
+        th.join(timeout=600)
+        if th.is_alive():
+            fail("mesh dryrun: the host worker is still running after 600 s")
+        if state["err"]:
+            fail(f"mesh dryrun: {state['err']}")
+        recs = {}
+        for arch, shape in MESH_DRYRUN:
+            with open(os.path.join(out, f"{arch}__{shape}__single.json")) as f:
+                recs[f"{arch}/{shape}"] = json.load(f)
+        return recs, state["s"]
+
+    return wait
+
+
+def run_mesh_routed(torch, mesh, batches, sparse, card) -> dict:
+    """Phase 6e (a): the sparse DCN-v2 step at full width with the table
+    owner-routed over the mesh (``table_axes=("model", "data")``,
+    ``batch_axes=("data", "model")``; the table this rank's row block,
+    ``shard_rows``, which on one rank is the table) beside the local step, both from
+    phase 3's start state (seed 0) on phase 3's batches: a warm-up and the
+    timed steps each, then the same again under torch's deterministic
+    algorithms for the holds (the scatter's atomics sum a row's repeats in
+    no fixed order: two runs of one step end 1.8e-5 apart in a table at
+    this size, over the bound).  Held: the routed gather bit-equal to the
+    local ``index_select``, no row dropped, the table and the accumulator
+    within MESH_ROUTED_ATOL of the local step's, the rows no batch touched
+    bit-unchanged."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.cells import (
+        make_sparse_recsys_train_step,
+        routed_table_gather,
+        shard_rows,
+        sparse_opt_init,
+    )
+    from repro_torch.models.recsys import init_model
+
+    axes = {"table_axes": ("model", "data"), "batch_axes": ("data", "model")}
+    cfg = get_arch(RECSYS_ARCH).full
+    offs = torch.arange(cfg.n_sparse, device=DEVICE) * cfg.rows_per_field
+    ids = [(b["sparse"].long() + offs).reshape(-1) for b in batches]
+
+    def train(kw):
+        free_bytes(torch)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model = init_model(cfg, 0, DEVICE)
+        if kw:
+            shard_rows(model, mesh, axes["table_axes"])
+        opt = sparse_opt_init(model)
+        step = make_sparse_recsys_train_step(cfg, **kw)
+        ms, losses, dropped = [], [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, m = step(model, opt, b)
+            losses.append(float(m["loss"]))
+            dropped.append(int(m.get("dropped", 0)))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return {"model": model, "opt": opt, "ms": ms[RECSYS_WARMUP:],
+                "losses": losses, "dropped": dropped,
+                "peak": torch.cuda.max_memory_allocated() - base}
+
+    kws = {"local": {}, "routed": {"mesh": mesh, **axes}}
+    timed = {}
+    for tag, kw in kws.items():
+        r = train(kw)
+        timed[tag] = {k: r[k] for k in ("ms", "peak", "dropped")}
+        del r
+    table0 = init_model(cfg, 0, DEVICE).table.detach()
+    got = routed_table_gather(table0, ids[0], mesh, **axes)
+    if not torch.equal(got, table0.index_select(0, ids[0])):
+        fail("mesh routed: the routed gather differs from index_select")
+    del got
+    torch.use_deterministic_algorithms(True)
+    loc = train(kws["local"])
+    d_ms = loc.pop("ms")
+    loc_table, loc_acc = loc["model"].table.detach(), loc["opt"]["table_acc"]
+    del loc["model"], loc["opt"]
+    rou = train(kws["routed"])
+    torch.use_deterministic_algorithms(False)
+    d_table = float((rou["model"].table.detach() - loc_table).abs().max())
+    d_acc = float((rou["opt"]["table_acc"] - loc_acc).abs().max())
+    del loc_table, loc_acc
+    touched = torch.zeros(cfg.table_rows, dtype=torch.bool, device=DEVICE)
+    for i in ids:
+        touched[i] = True
+    untouched = bool(torch.equal(rou["model"].table.detach()[~touched], table0[~touched]))
+    n_touched = int(touched.sum())
+    del rou["model"], rou["opt"], table0, touched
+    dropped = timed["routed"]["dropped"] + rou["dropped"]
+    if (any(dropped) or d_table > MESH_ROUTED_ATOL or d_acc > MESH_ROUTED_ATOL
+            or not untouched or not np.isfinite(rou["losses"]).all()):
+        fail(f"mesh routed: dropped {dropped}, table {d_table:.3e}, "
+             f"accumulator {d_acc:.3e} off the local step's (bound "
+             f"{MESH_ROUTED_ATOL:g}), untouched rows unchanged: {untouched}")
+    line = {"config": cfg.name, "table_rows": cfg.table_rows, "batch": int(
+                batches[0]["label"].shape[0]), "steps": len(batches),
+            "warmup_steps": RECSYS_WARMUP,
+            "routed_step_ms": timed["routed"]["ms"],
+            "routed_step_p50_ms": float(np.percentile(timed["routed"]["ms"], 50)),
+            "local_step_ms": timed["local"]["ms"],
+            "local_step_p50_ms": float(np.percentile(timed["local"]["ms"], 50)),
+            "phase3_sparse_step_p50_ms": sparse["step_p50_ms"],
+            "deterministic_routed_step_p50_ms": float(np.percentile(rou["ms"], 50)),
+            "deterministic_local_step_p50_ms": float(np.percentile(d_ms, 50)),
+            "routed_max_memory_allocated": timed["routed"]["peak"],
+            "local_max_memory_allocated": timed["local"]["peak"],
+            "dropped": dropped, "table_max_abs_diff": d_table,
+            "acc_max_abs_diff": d_acc, "bound": MESH_ROUTED_ATOL,
+            "gather_bit_equal": True, "rows_touched": n_touched,
+            "untouched_rows_unchanged": untouched,
+            "losses_routed": rou["losses"], "losses_local": loc["losses"],
+            "card": card}
+    print(f"[chip_smoke] mesh routed: {json.dumps(line)}", flush=True)
+    return line
+
+
+def run_mesh_psum(torch, mesh, batches, card) -> dict:
+    """Phase 6e (b): ``optim.compress.compressed_psum`` over the mesh's data
+    group on the dense DCN-v2 step's gradient tree (every parameter of the
+    full config, the loss of phase 3's first batch).  Held: the first
+    output equal to q * scale leaf by leaf; output + residual within one
+    f32 ulp of gradient + residual; over MESH_PSUM_APPS applications to
+    the one gradient the time-averaged output within 1% of it (the
+    reference test's criterion)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import recsys as R
+    from repro_torch.models.common import param_dict
+    from repro_torch.optim.compress import compressed_psum, ef_init
+
+    cfg = get_arch(RECSYS_ARCH).full
+    free_bytes(torch)
+    model = R.init_model(cfg, 0, DEVICE)
+    named = param_dict(model)
+    b = {k: batches[0][k] for k in ("dense", "sparse", "label")}
+    loss = R.loss_fn(model, b, cfg)
+    g = dict(zip(named, (x.detach() for x in torch.autograd.grad(loss, list(named.values())))))
+    del model, named, loss
+    n_params = sum(x.numel() for x in g.values())
+    ef = ef_init(g)
+    out, ef = compressed_psum(g, ef, mesh, ("data",))
+    ulp_worst = 0.0
+    for k, x in g.items():
+        scale = torch.clamp_min(x.abs().max(), 1e-12) / 127.0
+        q = torch.clamp(torch.round(x / scale), -127, 127)
+        if not torch.equal(out[k], q * scale):
+            fail(f"mesh psum: {k}: the output is not q * scale")
+        ulp = torch.nextafter(x.abs(), torch.full_like(x, float("inf"))) - x.abs()
+        off = ((out[k] + ef[k] - x).abs() / torch.clamp_min(ulp, 1e-45)).max()
+        ulp_worst = max(ulp_worst, float(off))
+    if ulp_worst > 1.0:
+        fail(f"mesh psum: output + residual is {ulp_worst:.2f} ulp off the gradient")
+    acc = {k: o.clone() for k, o in out.items()}
+    ms = []
+    for _ in range(MESH_PSUM_APPS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, ef = compressed_psum(g, ef, mesh, ("data",))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for k, o in out.items():
+            acc[k] += o
+    rel = max(float((acc[k] / MESH_PSUM_APPS - x).abs().max() / x.abs().max())
+              for k, x in g.items() if float(x.abs().max()) > 0)
+    del g, ef, out, acc
+    if rel >= 0.01:
+        fail(f"mesh psum: the time-averaged output is {rel:.3e} off the gradient")
+    line = {"params": n_params, "applications": MESH_PSUM_APPS, "ms": ms,
+            "p50_ms": float(np.percentile(ms, 50)), "wire_bytes_int32": n_params * 4,
+            "out_plus_err_worst_ulp": ulp_worst, "time_avg_rel_err": rel,
+            "card": card}
+    print(f"[chip_smoke] mesh psum: {json.dumps(line)}", flush=True)
+    return line
+
+
+def run_mesh_gnn(torch, mesh, products, card) -> dict:
+    """Phase 6e (c): ``models.gnn.loss_fn_dst_sharded`` over the mesh on
+    ogb_products whole (phase 3d's graph, made again from its seeds),
+    edges grouped by ``group_edges_by_dst_shard`` with S = 1, its messages
+    in f32 and in the cell's bf16, each a loss and its gradients beside
+    ``loss_fn``'s.  Held: at f32 the loss within MESH_GNN_LOSS_ATOL and
+    every gradient within MESH_GNN_GRAD_ATOL; at bf16 the loss and the
+    gradients within a relative L2 of MESH_GNN_BF16_REL."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import gnn as G
+    from repro_torch.models.common import param_dict
+
+    bundle = get_arch(GNN_ARCH)
+    shape = next(s for s in bundle.shapes if s.name == "ogb_products")
+    cfg = gnn_shape_cfg(bundle, shape)  # bf16 messages, as the cell's
+    free_bytes(torch)
+    batch, edges, _ = products_batch(torch, cfg, shape)
+    t0 = time.perf_counter()
+    ge, gmask, _ = G.group_edges_by_dst_shard(edges, shape.n_nodes, 1)
+    group_s = time.perf_counter() - t0
+    del edges
+    sb = dict(batch, edges=torch.from_numpy(ge).to(DEVICE),
+              edge_mask=torch.from_numpy(gmask).to(DEVICE))
+    del ge, gmask
+    model = G.init_model(cfg, 1, DEVICE)
+    named = param_dict(model)
+
+    def value_and_grad(fn):
+        free_bytes(torch)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = fn()
+        grads = torch.autograd.grad(loss, list(named.values()))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return (loss.detach(), torch.cat([x.reshape(-1) for x in grads]), ms,
+                torch.cuda.max_memory_allocated() - base)
+
+    f32 = dataclasses.replace(cfg, message_dtype="float32")
+    runs = {"plain": value_and_grad(lambda: G.loss_fn(model, batch, cfg)),
+            "f32": value_and_grad(lambda: G.loss_fn_dst_sharded(model, sb, f32, mesh=mesh)),
+            "bf16": value_and_grad(lambda: G.loss_fn_dst_sharded(model, sb, cfg, mesh=mesh))}
+    del batch, sb, model, named
+    free_bytes(torch)
+    (l0, g0, _, _), (l1, g1, _, _), (l2, g2, _, _) = (runs[k] for k in ("plain", "f32", "bf16"))
+    held = {"f32_loss_abs_diff": float((l1 - l0).abs()),
+            "f32_grad_max_abs_diff": float((g1 - g0).abs().max()),
+            "bf16_loss_rel_diff": float((l2 - l0).abs() / l0.abs()),
+            "bf16_grad_rel_l2": rel_l2(g2, g0)}
+    if (held["f32_loss_abs_diff"] > MESH_GNN_LOSS_ATOL
+            or held["f32_grad_max_abs_diff"] > MESH_GNN_GRAD_ATOL
+            or held["bf16_loss_rel_diff"] > MESH_GNN_BF16_REL
+            or held["bf16_grad_rel_l2"] > MESH_GNN_BF16_REL
+            or not all(bool(torch.isfinite(r[0])) for r in runs.values())):
+        fail(f"mesh gnn: {held} against loss {MESH_GNN_LOSS_ATOL:g}, gradients "
+             f"{MESH_GNN_GRAD_ATOL:g} (f32) and relative {MESH_GNN_BF16_REL:g} (bf16)")
+    line = {"config": cfg.name, "shape": shape.name, "nodes": shape.n_nodes,
+            "edges": shape.n_edges, "shards": 1, "group_edges_s": group_s,
+            **{f"{k}_loss": float(r[0]) for k, r in runs.items()},
+            **{f"{k}_value_and_grad_ms": r[2] for k, r in runs.items()},
+            **{f"{k}_max_memory_allocated": r[3] for k, r in runs.items()},
+            "phase3d_step_p50_ms": products.get("step_p50_ms"),
+            "held": held, "bounds": {"f32_loss_abs": MESH_GNN_LOSS_ATOL,
+                                     "f32_grad_abs": MESH_GNN_GRAD_ATOL,
+                                     "bf16_rel": MESH_GNN_BF16_REL},
+            "card": card}
+    print(f"[chip_smoke] mesh gnn: {json.dumps(line)}", flush=True)
+    return line
+
+
+def run_mesh_moe(torch, mesh, layers: int, card) -> dict:
+    """Phase 6e (d): moonshot-v1-16b-a3b at full width and phase 3c's depth
+    (``layers``), f32: a forward over MESH_MOE_TOKENS tokens with
+    ``moe_shard_map=True`` inside ``set_mesh(mesh)`` (on one rank the
+    TP-in-expert branch, its psum over the NCCL group) held within
+    MESH_MOE_ATOL to the ``moe_ffn`` forward with the matching
+    ``moe_groups`` (data x model = 1)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.models import transformer as T
+
+    bundle = get_arch(MOONSHOT_ARCH)
+    cfg = dataclasses.replace(bundle.full, n_layers=layers,
+                              compute_dtype=torch.float32, moe_groups=1)
+    free_bytes(torch)
+    model = T.init_model(cfg, 0, DEVICE)
+    tok = lm_tokens(cfg, MESH_MOE_TOKENS)
+    out, ms = {}, {}
+    for tag, c in (("moe_ffn", cfg), ("shard_map", dataclasses.replace(
+            cfg, moe_shard_map=True))):
+        with set_mesh(mesh), torch.no_grad():
+            T.forward(model, tok[:, :64], c)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[tag] = T.forward(model, tok, c)
+            torch.cuda.synchronize()
+            ms[tag] = (time.perf_counter() - t0) * 1e3
+    (h0, a0), (h1, a1) = out["moe_ffn"], out["shard_map"]
+    dh = float((h1 - h0).abs().max())
+    da = float((a1 - a0).abs())
+    finite = bool(torch.isfinite(h1).all())
+    del model, out, h0, h1
+    free_bytes(torch)
+    if dh >= MESH_MOE_ATOL or not finite:
+        fail(f"mesh moe: the shard-map forward is {dh:.3e} off moe_ffn's "
+             f"(bound {MESH_MOE_ATOL:g})")
+    line = {"config": cfg.name, "layers": layers, "tokens": MESH_MOE_TOKENS,
+            "experts": cfg.n_experts, "top_k": cfg.top_k, "branch": "tp-in-expert",
+            "max_abs_diff": dh, "aux_abs_diff": da, "bound": MESH_MOE_ATOL,
+            "moe_ffn_forward_ms": ms["moe_ffn"], "shard_map_forward_ms": ms["shard_map"],
+            "card": card}
+    print(f"[chip_smoke] mesh moe: {json.dumps(line)}", flush=True)
+    return line
+
+
+def run_mesh_path(torch, card, batches, sparse, products, moon_layers, dry_wait):
+    """Phase 6e: the mesh paths on one card over NCCL; returns its seconds."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    piece_s = {}
+    with one_rank_group(torch) as mesh:
+        print(f"[chip_smoke] mesh: {mesh!r} over a "
+              f"{torch.distributed.get_backend()} group of "
+              f"{torch.distributed.get_world_size()} rank [{card}]", flush=True)
+        for name, fn in (("routed", lambda: run_mesh_routed(torch, mesh, batches,
+                                                             sparse, card)),
+                         ("psum", lambda: run_mesh_psum(torch, mesh, batches, card)),
+                         ("gnn", lambda: run_mesh_gnn(torch, mesh, products, card)),
+                         ("moe", lambda: run_mesh_moe(torch, mesh, moon_layers, card))):
+            t0 = time.perf_counter()
+            fn()
+            piece_s[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recs, worker_s = dry_wait()
+    piece_s["dryrun_wait"] = time.perf_counter() - t0
+    bad = {k: r.get("error") for k, r in recs.items() if r["status"] != "ok"}
+    if bad:
+        fail(f"mesh dryrun: {bad}")
+    summary = {k: {"n_devices": r["summary"]["n_devices"],
+                   "flops_per_device": r["summary"]["flops_per_device"],
+                   "bytes_per_device": r["summary"]["bytes_per_device"],
+                   "collective_wire_bytes_per_device":
+                       r["summary"]["collective_wire_bytes_per_device"],
+                   "roofline": r["roofline"], "traced_s": r["t_compile_s"]}
+               for k, r in recs.items()}
+    print(f"[chip_smoke] mesh dryrun: {json.dumps({'cells': summary, 'worker_s': worker_s, 'torch': torch.__version__, 'card': card})}",
+          flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[chip_smoke] mesh phase: {json.dumps(piece_s)}; {phase_s:.1f}s of its "
+          f"{MESH_PHASE_S:.0f}s budget, and {worker_s:.1f}s in the host worker "
+          f"beside phase 3c [{card}]", flush=True)
+    return phase_s
 
 
 def bag_edge_cases(torch) -> dict:
@@ -4180,7 +4690,6 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     dense_s = time.perf_counter() - t_phase
     sparse = run_sparse_step(torch, rec_batches, rec_summary, rec_alone, card)
-    del rec_batches
     seq = {arch: run_seq_arch(torch, arch, card) for arch in SEQ_ARCHS}
     piece_s = {"dense": dense_s, "sparse": sparse["piece_s"],
                **{a: line["arch_s"] for a, line in seq.items()}}
@@ -4192,17 +4701,20 @@ def main(argv=None) -> int:
 
     # 3c. the LM family at full width: qwen3-0.6b whole, moonshot and
     # mixtral at full width and cut depth, the smoke configs, train_lm;
-    # beside it, two worker processes: phase 3d's store and phase 4's
-    # scalar-loop oracle
-    with host_workers(args.n_lists) as jobs:
+    # beside it, three worker processes: phase 3d's store, phase 4's
+    # scalar-loop oracle and phase 6's ranked index; and phase 6e's dry
+    # runs in subprocesses
+    dry_wait = dryrun_worker()
+    with host_workers(args.n_lists, args.ranked_queries) as jobs:
+        ranked_job = jobs["ranked"]
         t_phase = time.perf_counter()
-        run_lm_path(torch, card)
+        _, lm_lines = run_lm_path(torch, card)
         phase_s["3c lm"] = time.perf_counter() - t_phase
 
         # 3d. the GNN family at full width: the launcher and gin-tu's four
         # shapes
         t_phase = time.perf_counter()
-        _, gnn_launches = run_gnn_path(torch, card, jobs["gnn"],
+        _, gnn_launches, gnn_lines = run_gnn_path(torch, card, jobs["gnn"],
                                        {"decode_blocks": vk.decode_blocks})
         phase_s["3d gnn"] = time.perf_counter() - t_phase
 
@@ -4248,7 +4760,7 @@ def main(argv=None) -> int:
                     "pivot_select": pk.pivot_select,
                     "pivot_score": sk.pivot_score}
     rres, _, _, rlaunches = run_ranked_path(args.ranked_queries, torch, serve,
-                                            all_counters, card)
+                                            all_counters, card, ranked_job)
     if args.ranked_queries != RANKED_QUERIES:
         print(f"[chip_smoke] ranked cut: {args.ranked_queries} queries "
               f"instead of {RANKED_QUERIES}", flush=True)
@@ -4284,6 +4796,12 @@ def main(argv=None) -> int:
     analyze_launches = run_analyze_path(res, rres, torch, all_counters, card,
                                         ptx_divs)
     phase_s["6d analyze"] = time.perf_counter() - t_phase
+
+    # 6e. the mesh paths on one card over NCCL, and the dry run's cells
+    phase_s["6e mesh"] = run_mesh_path(torch, card, rec_batches, sparse,
+                                       gnn_lines["products"],
+                                       lm_lines["moonshot"]["layers"], dry_wait)
+    del rec_batches
 
     # 7. each kernel against its plain version
     t_phase = time.perf_counter()

@@ -445,19 +445,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def run(args) -> dict:
-    """The serving paths: build the corpus and its index, then serve.
-
-    Boolean AND returns ``serve_boolean``'s keys plus ``index``,
-    ``queries``, ``n_postings``, ``build_s`` and ``bpi``; ``--ranked``
-    returns ``run_ranked``'s.
-    """
-    cfg = args.cfg
-    if resolve_backend(cfg.backend) == "torch":
+def check_device(args) -> None:
+    """Fail, before any corpus is built, when the torch backend's device
+    is missing."""
+    if resolve_backend(args.cfg.backend) == "torch":
         try:
-            resolve_device(cfg.device)  # fail before the corpus is built
+            resolve_device(args.cfg.device)
         except RuntimeError as e:
             raise SystemExit(f"[serve] {e}") from None
+
+
+def _corpus(args):
+    """-> (the seeded generator, the corpus, its posting count)."""
     rng = np.random.default_rng(args.seed)
     t0 = obs.now()
     corpus = make_corpus(
@@ -466,8 +465,21 @@ def run(args) -> dict:
     n_postings = sum(len(l) for l in corpus)
     print(f"[serve] corpus: {args.n_lists} lists, {n_postings:,} postings "
           f"({obs.now()-t0:.1f}s)")
+    return rng, corpus, n_postings
+
+
+def run(args) -> dict:
+    """The serving paths: build the corpus and its index, then serve.
+
+    Boolean AND returns ``serve_boolean``'s keys plus ``index``,
+    ``queries``, ``n_postings``, ``build_s`` and ``bpi``; ``--ranked``
+    returns ``run_ranked``'s.
+    """
+    cfg = args.cfg
+    check_device(args)
     if args.ranked:
-        return run_ranked(args, rng, corpus, n_postings)
+        return run_ranked(args)
+    rng, corpus, n_postings = _corpus(args)
 
     t0 = obs.now()
     idx = build_partitioned_index(corpus, "optimal", codecs=cfg.codec_policy)
@@ -573,14 +585,17 @@ def serve_boolean(args, idx, queries) -> dict:
     return out
 
 
-def run_ranked(args, rng, corpus, n_postings: int) -> dict:
-    """The ``--ranked`` path: batched BM25 top-k over the freq arena.
+def build_ranked(args) -> dict:
+    """The ``--ranked`` path's build half: the corpus, its term
+    frequencies, the optimal index with the freq arena of its codec policy
+    (host only), and the queries, all from ``args.seed``.
 
     Keys: ``index``, ``queries``, ``n_postings``, ``freqs_s`` (the tf
     generator), ``build_s`` (index + arena with its ranked sidecar),
-    ``bpi``, then ``serve_ranked``'s.
+    ``bpi``.
     """
     cfg = args.cfg
+    rng, corpus, n_postings = _corpus(args)
     t0 = obs.now()
     freqs = make_freqs(rng, corpus)
     t_freqs = obs.now() - t0
@@ -607,8 +622,14 @@ def run_ranked(args, rng, corpus, n_postings: int) -> dict:
         "freqs_s": t_freqs,
         "build_s": t_build,
         "bpi": idx.bits_per_int(),
-        **serve_ranked(args, idx, queries),
     }
+
+
+def run_ranked(args) -> dict:
+    """The ``--ranked`` path: batched BM25 top-k over the freq arena --
+    ``build_ranked``'s keys, then ``serve_ranked``'s."""
+    built = build_ranked(args)
+    return {**built, **serve_ranked(args, built["index"], built["queries"])}
 
 
 def serve_ranked(args, idx, queries) -> dict:

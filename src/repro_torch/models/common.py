@@ -88,6 +88,65 @@ def _key_path(name: str):
     return tuple(int(p) if p.isdigit() else p for p in name.split("."))
 
 
+def unflatten(flat: dict) -> dict:
+    """Dotted names -> the reference's nest of dicts and lists (a numeric
+    part is a list index)."""
+    tree: dict = {}
+    for name, v in flat.items():
+        *head, last = _key_path(name)
+        node = tree
+        for k, nxt in zip(head, [*head[1:], last]):
+            if isinstance(node, list):
+                while len(node) <= k:
+                    node.append(None)
+                if node[k] is None:
+                    node[k] = [] if isinstance(nxt, int) else {}
+                node = node[k]
+            else:
+                node = node.setdefault(k, [] if isinstance(nxt, int) else {})
+        if isinstance(node, list):
+            while len(node) <= last:
+                node.append(None)
+        node[last] = v
+    return tree
+
+
+def flatten(tree, prefix: str = "") -> dict:
+    """The inverse of ``unflatten``: the leaves by dotted name."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif type(tree) in (list, tuple):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(flatten(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def tree_map(fn, tree):
+    """``fn`` over every leaf of a nest of dicts, lists and tuples (a
+    tuple's subclass, such as a ``PartitionSpec``, is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if type(tree) in (list, tuple):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def meta(shape, dtype=torch.float32) -> torch.Tensor:
+    """A tensor on the ``meta`` device: a shape and a dtype, no storage
+    (jax's ``ShapeDtypeStruct``)."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def meta_tree(shapes: dict, dtype=torch.float32) -> dict:
+    """Dotted names and shapes -> the nested tree of ``meta`` tensors
+    (jax's ``eval_shape``)."""
+    return unflatten({k: meta(s, dtype) for k, s in shapes.items()})
+
+
 def param_dict(module: torch.nn.Module) -> dict[str, torch.Tensor]:
     """A module's parameters by dotted name, in the order
     ``jax.tree_util.tree_leaves`` gives the reference's tree (dict keys

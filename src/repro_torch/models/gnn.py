@@ -21,9 +21,12 @@ weight ``[in, out]`` -- held by a ``GIN`` module without a copy, so
 ``models.common.param_dict`` gives jax's leaf order (``init_model`` draws
 one on the card unless told otherwise).  Entry points as in the
 reference: ``forward``, ``loss_fn(model, batch, cfg)`` (for
-``launch.cells.make_train_step``) and ``loss_fn_dst_sharded`` without a
-mesh.  The dst-sharded path and the mesh specs wait for the several-device
-slice and raise.
+``launch.cells.make_train_step``) and ``loss_fn_dst_sharded``, which over
+a mesh (an argument, or the ambient ``launch.mesh.set_mesh``) runs the
+dst-aligned sharded path: nodes and edges split over every mesh axis, one
+``all_gather`` of the node block a layer in ``message_dtype``.  The dry
+run's shardings and meta tensors come from ``param_specs``,
+``input_specs``, ``batch_specs`` and ``batch_specs_sharded``.
 """
 
 from __future__ import annotations
@@ -35,10 +38,19 @@ import torch
 from torch import nn
 
 from ..api import resolve_device
-from .common import dense_init, layer_norm, split_keys
-
-A7E = ("the mesh machinery comes with the several-device slice of the port "
-       "(ROADMAP Queue A 7, A7e)")
+from ..launch.mesh import (
+    P,
+    all_gather,
+    axis_index,
+    axis_names,
+    axis_size,
+    from_local,
+    get_abstract_mesh,
+    is_dtensor,
+    psum,
+    shard_map,
+)
+from .common import dense_init, layer_norm, meta, split_keys, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,10 +103,6 @@ def init_params_shape_tree(cfg: GINConfig) -> dict:
     """``init_params``'s tree on the ``meta`` device: shapes and dtypes,
     no storage."""
     shapes = shape_tree(cfg)
-
-    def meta(s):
-        return torch.empty(s, dtype=torch.float32, device="meta")
-
     return {"layers": [{k: meta(s) for k, s in l.items()} for l in shapes["layers"]],
             "head": meta(shapes["head"]), "head_b": meta(shapes["head_b"])}
 
@@ -156,14 +164,52 @@ class _SegmentSum(torch.autograd.Function):
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int):
     """``jax.ops.segment_sum`` for in-range ids: row i of ``data`` added
-    into row ``segment_ids[i]`` of a zero ``[num_segments, ...]``."""
+    into row ``segment_ids[i]`` of a zero ``[num_segments, ...]``.  On
+    DTensors (the dry run) each rank sums its own rows: rows split over a
+    mesh axis give a partial sum over it, as XLA's under pjit."""
+    if is_dtensor(data):
+        return _segment_sum_dtensor(data, segment_ids, num_segments)
     return _SegmentSum.apply(data, segment_ids, num_segments)
+
+
+def _segment_sum_dtensor(data, segment_ids, num_segments: int):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = data.device_mesh
+    pl = [Replicate() if isinstance(p, Partial) else p for p in data.placements]
+    data = data.redistribute(mesh, pl)
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in pl]
+    ids = segment_ids.redistribute(mesh, rows)
+    out_pl = [Partial() if isinstance(p, Shard) and p.dim == 0 else p for p in pl]
+    local = _SegmentSum.apply(data.to_local(), ids.to_local(), num_segments)
+    return from_local(local, mesh, out_pl, (num_segments, *data.shape[1:]))
 
 
 def aggregate(h: torch.Tensor, src, dst, keep: torch.Tensor) -> torch.Tensor:
     """One layer's messages summed at their destinations: row v is the sum
     of ``h[src[e]] * keep[e]`` over the edges e with ``dst[e] == v``."""
-    return segment_sum(h.index_select(0, src) * keep, dst, h.shape[0])
+    return segment_sum(_gather_rows(h, src) * keep, dst, h.shape[0])
+
+
+def _gather_rows(h, idx):
+    """``h.index_select(0, idx)``; on DTensors (the dry run) in a local
+    region: each rank gathers its ids' rows from every row of ``h``, and
+    the rows' cotangents sum over the mesh axes that split the ids."""
+    if not is_dtensor(h):
+        return h.index_select(0, idx)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = h.device_mesh
+    split = [isinstance(p, Shard) and p.dim == 0 for p in idx.placements]
+    hpl = [p if isinstance(p, Shard) and p.dim > 0 else Replicate()
+           for p in h.placements]
+    ipl = [Shard(0) if s else Replicate() for s in split]
+    h, idx = h.redistribute(mesh, hpl), idx.redistribute(mesh, ipl)
+    grad = [Partial() if s and isinstance(p, Replicate) else p
+            for s, p in zip(split, hpl)]
+    rows = h.to_local(grad_placements=grad).index_select(0, idx.to_local())
+    out_pl = [Shard(0) if s else p for s, p in zip(split, hpl)]
+    return from_local(rows, mesh, out_pl, (idx.shape[0], *h.shape[1:]))
 
 
 def forward(model, feats, edges, edge_mask, cfg: GINConfig, graph_ids=None,
@@ -207,24 +253,96 @@ def loss_fn(model, batch: dict, cfg: GINConfig):
 
 
 # ==========================================================================
-# dst-aligned sharded message passing: waits for the mesh (A7e)
+# dst-aligned sharded message passing
 # ==========================================================================
+#
+# Nodes AND edges are sharded over every mesh axis:
+#
+#   * the pipeline delivers edges grouped by destination shard
+#     (``group_edges_by_dst_shard``): shard s holds only edges whose dst
+#     lies in [s*N/S, (s+1)*N/S), padded + masked;
+#   * per layer, all_gather the [N/S, d] node block (the ONLY collective),
+#     gather sources locally, segment_sum into the LOCAL dst range (no
+#     all-reduce), run the MLP on the local node block;
+#   * the loss is a local masked CE + psum.
+
+def _all_axes(mesh) -> tuple:
+    names = axis_names(mesh)
+    return tuple(a for a in ("pod", "data", "model") if a in names)
+
+
+def param_tree(model) -> dict:
+    """A ``GIN``'s parameters as the reference's tree (the same tensors)."""
+    if isinstance(model, dict):
+        return model
+    keys = ("eps", "w1", "b1", "w2", "b2", "ln_scale", "ln_bias")
+    return {"layers": [{k: getattr(l, k) for k in keys} for l in model.layers],
+            "head": model.head, "head_b": model.head_b}
+
 
 def forward_dst_sharded(model, feats_loc, edges_loc, edge_mask_loc, cfg: GINConfig,
                         axes: tuple, n_shards: int):
-    raise NotImplementedError(f"forward_dst_sharded: {A7E}")
+    """Body run per shard inside ``shard_map``: feats_loc [N/S, d];
+    edges_loc [2, E/S] (dst in this shard's range).  ``model`` is a
+    ``GIN`` or its tree.  The shard index is the axes' row-major index.
+    Each layer's messages are rebuilt from the ids in the backward, as
+    ``aggregate``'s are."""
+    params = param_tree(model)
+    n_loc = feats_loc.shape[0]
+    dst_off = axis_index(axes) * n_loc
+    h_loc = feats_loc
+    src, dst = edges_loc[0], edges_loc[1] - dst_off
+    keep = edge_mask_loc[:, None].to(torch.float32)
+    mdt = torch.bfloat16 if cfg.message_dtype == "bfloat16" else torch.float32
+    for lp in params["layers"]:
+        # the ONLY collective: gather node blocks in message_dtype (bf16
+        # halves the wire); segment accumulation stays f32
+        h_full = all_gather(h_loc.to(mdt), axes)
+        msg = h_full.index_select(0, src).to(torch.float32).mul_(keep)
+        agg = segment_sum(msg, dst, n_loc)
+        z = (1.0 + lp["eps"]) * h_loc + agg
+        z = torch.relu(z @ lp["w1"] + lp["b1"])
+        z = z @ lp["w2"] + lp["b2"]
+        h_loc = layer_norm(z, lp["ln_scale"], lp["ln_bias"])
+    return h_loc @ params["head"] + params["head_b"]
 
 
 def loss_fn_dst_sharded(model, batch: dict, cfg: GINConfig, mesh=None):
-    """Without a mesh, ``loss_fn`` (the reference's branch for no mesh);
-    the sharded loss waits for the several-device slice."""
-    if mesh is None:
+    """batch: feats [N,d], edges [2,E] dst-grouped, edge_mask, labels,
+    label_mask -- global tensors, split over every mesh axis (see
+    ``batch_specs_sharded``); every rank gets the same loss.  Without a
+    mesh (none given, none ambient) it is ``loss_fn``."""
+    mesh = mesh or get_abstract_mesh()
+    if mesh is None or not axis_names(mesh):
         return loss_fn(model, batch, cfg)
-    raise NotImplementedError(f"loss_fn_dst_sharded over a mesh: {A7E}")
+    axes = _all_axes(mesh)
+    S = 1
+    for a in axes:
+        S *= axis_size(mesh, a)
+
+    def body(feats, edges, emask, labels, lmask, params):
+        logits = forward_dst_sharded(params, feats, edges, emask, cfg, axes, S)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels.long()[:, None])[:, 0]
+        m = lmask.float()
+        num = psum((nll * m).sum(), axes)
+        den = psum(m.sum(), axes)
+        return num / torch.clamp_min(den, 1.0)
+
+    return shard_map(body, mesh,
+                     (P(axes, None), P(None, axes), P(axes), P(axes), P(axes), P()),
+                     P())(batch["feats"], batch["edges"], batch["edge_mask"],
+                          batch["labels"], batch["label_mask"], param_tree(model))
 
 
 def batch_specs_sharded(cfg: GINConfig, axes=("pod", "data", "model")):
-    raise NotImplementedError(f"batch_specs_sharded: {A7E}")
+    return {
+        "feats": P(axes, None),
+        "edges": P(None, axes),
+        "edge_mask": P(axes),
+        "labels": P(axes),
+        "label_mask": P(axes),
+    }
 
 
 def group_edges_by_dst_shard(edges: np.ndarray, n_nodes: int, n_shards: int):
@@ -247,12 +365,39 @@ def group_edges_by_dst_shard(edges: np.ndarray, n_nodes: int, n_shards: int):
 
 
 def param_specs(cfg: GINConfig, model_axis: str = "model"):
-    raise NotImplementedError(f"param_specs: {A7E}")
+    """GIN is tiny -> replicate everything."""
+    return tree_map(lambda _: P(), init_params_shape_tree(cfg))
 
 
 def input_specs(cfg: GINConfig, n_nodes: int, n_edges: int, n_graphs: int = 0):
-    raise NotImplementedError(f"input_specs: {A7E}")
+    """The dry run's inputs as ``meta`` tensors (shapes pre-padded by the
+    caller)."""
+    spec = {
+        "feats": meta((n_nodes, cfg.d_in), torch.float32),
+        "edges": meta((2, n_edges), torch.int32),
+        "edge_mask": meta((n_edges,), torch.bool),
+    }
+    if cfg.graph_readout:
+        spec["graph_ids"] = meta((n_nodes,), torch.int32)
+        spec["labels"] = meta((n_graphs,), torch.int32)
+    else:
+        spec["labels"] = meta((n_nodes,), torch.int32)
+        spec["label_mask"] = meta((n_nodes,), torch.bool)
+    return spec
 
 
 def batch_specs(cfg: GINConfig, data_axes=("pod", "data")):
-    raise NotImplementedError(f"batch_specs: {A7E}")
+    """PartitionSpecs: edges sharded over data axes, nodes replicated."""
+    d = data_axes
+    spec = {
+        "feats": P(),
+        "edges": P(None, d),
+        "edge_mask": P(d),
+    }
+    if cfg.graph_readout:
+        spec["graph_ids"] = P()
+        spec["labels"] = P()
+    else:
+        spec["labels"] = P()
+        spec["label_mask"] = P()
+    return spec

@@ -17,7 +17,8 @@ Entry points as in the reference: ``forward`` (CTR logit), ``loss_fn``
 reference's numerics: the masked scores are filled with -1e30 before the
 softmax, BST divides its scores by ``math.sqrt(dh)``, and the attention
 runs as plain einsums (not ``scaled_dot_product_attention``, whose
-masking and operation order differ).
+masking and operation order differ).  The dry run's shardings and meta
+tensors: ``param_specs``, ``input_specs`` and ``batch_specs``.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ import torch
 from torch import nn
 
 from ..api import resolve_device
-from .common import dense_init, rms_norm, split_keys
+from ..launch.mesh import P, is_dtensor, lookup_rows
+from .common import dense_init, meta, meta_tree, rms_norm, split_keys, tree_map
 
 KINDS = ("dcn", "dlrm", "din", "bst")
 MASK_FILL = -1e30  # the reference's fill of masked scores
@@ -186,6 +188,22 @@ def init_params(gen: torch.Generator, cfg: RecsysConfig) -> dict:
     return p
 
 
+def init_params_shape_tree(cfg: RecsysConfig) -> dict:
+    """``init_params``'s tree on the ``meta`` device: shapes and dtypes,
+    no storage."""
+    return meta_tree(param_shapes(cfg))
+
+
+def param_specs(cfg: RecsysConfig, model_axis: str = "model"):
+    """Everything replicated but the table, row-sharded over `model`."""
+    specs = tree_map(lambda _: P(), init_params_shape_tree(cfg))
+    if cfg.kind in ("dcn", "dlrm"):
+        specs["table"] = P(model_axis, None)
+    else:
+        specs["item_table"] = P(model_axis, None)
+    return specs
+
+
 class Dense(nn.Module):
     """One ``x @ w + b`` layer with the reference's ``[in, out]`` weight."""
 
@@ -252,6 +270,8 @@ def embed_fields(table, sparse_ids, rows_per_field: int):
     fill NaN, ``index_select`` raises."""
     B, F = sparse_ids.shape
     offs = torch.arange(F, device=sparse_ids.device) * rows_per_field
+    if is_dtensor(table):  # the dry run
+        return lookup_rows(table, sparse_ids.long() + offs[None, :])
     idx = (sparse_ids.long() + offs[None, :]).reshape(-1)
     return table.index_select(0, idx).reshape(B, F, table.shape[1])
 
@@ -282,6 +302,8 @@ def ctr_head(model, dense, emb, cfg: RecsysConfig):
 def take_items(table, ids):
     """``table[ids]`` for ids of any shape: [..., d] (the reference's
     ``jnp.take``; ids must lie in [0, item_vocab))."""
+    if is_dtensor(table):  # the dry run
+        return lookup_rows(table, ids)
     return table.index_select(0, ids.reshape(-1).long()).reshape(
         *ids.shape, table.shape[1])
 
@@ -365,3 +387,53 @@ def retrieval_step(model, batch: dict, cfg: RecsysConfig):
     tgt = take_items(model.item_table, cand)  # [C, d]
     head = _din_head if cfg.kind == "din" else _bst_head
     return head(model, hist, mask, tgt, cfg)
+
+
+# --------------------------------------------------------------------------
+# Dry-run input specs
+# --------------------------------------------------------------------------
+
+def input_specs(cfg: RecsysConfig, kind: str, batch: int, n_candidates: int = 0):
+    """An entry point's inputs as ``meta`` tensors."""
+    f32, i32 = torch.float32, torch.int32
+    if kind == "retrieval":
+        spec = {"candidates": meta((n_candidates,), i32)}
+        if cfg.kind in ("dcn", "dlrm"):
+            spec["dense"] = meta((1, cfg.n_dense), f32)
+            spec["sparse"] = meta((1, cfg.n_sparse), i32)
+        else:
+            spec["history"] = meta((1, cfg.seq_len), i32)
+            spec["hist_mask"] = meta((1, cfg.seq_len), torch.bool)
+        return spec
+    if cfg.kind in ("dcn", "dlrm"):
+        spec = {
+            "dense": meta((batch, cfg.n_dense), f32),
+            "sparse": meta((batch, cfg.n_sparse), i32),
+        }
+    else:
+        spec = {
+            "history": meta((batch, cfg.seq_len), i32),
+            "hist_mask": meta((batch, cfg.seq_len), torch.bool),
+            "target": meta((batch,), i32),
+        }
+    if kind == "train":
+        spec["label"] = meta((batch,), f32)
+    return spec
+
+
+def batch_specs(cfg: RecsysConfig, kind: str, data_axes=("pod", "data")):
+    d = data_axes
+    if kind == "retrieval":
+        spec = {"candidates": P(d)}
+        if cfg.kind in ("dcn", "dlrm"):
+            spec.update({"dense": P(), "sparse": P()})
+        else:
+            spec.update({"history": P(), "hist_mask": P()})
+        return spec
+    if cfg.kind in ("dcn", "dlrm"):
+        spec = {"dense": P(d), "sparse": P(d)}
+    else:
+        spec = {"history": P(d), "hist_mask": P(d), "target": P(d)}
+    if kind == "train":
+        spec["label"] = P(d)
+    return spec

@@ -23,9 +23,19 @@ filled with -1e30 (not -inf), the two attention paths' own operation
 order, RoPE on halves, ``lax.top_k``'s tie order in the router.  No
 ``scaled_dot_product_attention``: its masking and operation order differ.
 The work runs as plain torch ops (the reference computes it in jnp and
-``lax.scan`` outside any Pallas kernel).  The mesh machinery --
-``param_specs``, ``input_specs``, ``moe_ffn_shard_map`` -- waits for the
-several-device slice and raises.
+``lax.scan`` outside any Pallas kernel).
+
+The mesh machinery: ``param_specs`` / ``input_specs`` (the dry run's
+shardings and meta tensors), ``maybe_shard`` (a redistribute of a DTensor
+inside ``launch.mesh.set_mesh``, else the identity) and, with
+``cfg.moe_shard_map``, ``moe_ffn_shard_map``: the MoE over the ambient
+mesh's explicit collectives (``launch.mesh.shard_map``), an
+``all_to_all`` of the capacity buffer over ``model`` when the experts
+split over it (EP), else a token-sized ``psum`` of each rank's slice of
+every expert (TP-in-expert).  On DTensors (the dry run) the attention,
+the embedding lookup, the loss's vocabulary and the prefill's cache take
+local regions or explicit redistributes (``_attend``, ``lookup_rows``);
+plain tensors take the paths above unchanged.
 """
 
 from __future__ import annotations
@@ -40,12 +50,40 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..api import resolve_device
-from .common import dense_init, rms_norm, split_keys
+from ..launch.mesh import (
+    P,
+    all_to_all,
+    axis_names,
+    axis_size,
+    data_axes,
+    from_local,
+    get_abstract_mesh,
+    is_dtensor,
+    keep_axes,
+    lookup_rows,
+    pmean,
+    psum,
+    shard_map,
+    spec_to_placements,
+)
+from .common import dense_init, meta, meta_tree, rms_norm, split_keys
 
+_BATCH = P(("pod", "data"), None, None)  # activations: batch over the data axes
 MASK_FILL = -1e30  # the reference's fill of masked scores and first max
 I32_MAX = 2**31 - 1  # position of a cache slot that holds nothing yet
-A7E = ("the mesh machinery comes with the several-device slice of the port "
-       "(ROADMAP Queue A 7, A7e)")
+
+
+def maybe_shard(x: torch.Tensor, spec) -> torch.Tensor:
+    """``with_sharding_constraint`` that degrades gracefully: inside
+    ``set_mesh`` a DTensor is redistributed to ``spec`` (the axis names the
+    mesh lacks dropped, so one spec serves the single-pod mesh, the
+    multi-pod mesh and none); a plain tensor, global on every rank, and
+    anything outside a mesh pass as they are."""
+    mesh = get_abstract_mesh()
+    if mesh is None or not axis_names(mesh) or not is_dtensor(x):
+        return x
+    return x.redistribute(x.device_mesh, spec_to_placements(
+        keep_axes(spec, mesh), mesh, x.ndim))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +103,7 @@ class TransformerConfig:
     top_k: int = 0
     capacity_factor: float = 1.25
     moe_groups: int = 1  # GShard-style groups: positions and capacity per group
-    moe_shard_map: bool = False  # explicit-collective MoE: waits for A7e
+    moe_shard_map: bool = False  # explicit-collective MoE (moe_ffn_shard_map)
     # attention
     sliding_window: int = 0  # 0 => full causal attention
     rope_theta: float = 10_000.0
@@ -223,12 +261,67 @@ def layer_params(model) -> list[dict[str, torch.Tensor]]:
     return [dict(zip(names, vals)) for vals in per]
 
 
+def init_params_shape_tree(cfg: TransformerConfig) -> dict:
+    """``init_params``'s tree on the ``meta`` device: shapes and dtypes,
+    no storage."""
+    return meta_tree(param_shapes(cfg), cfg.param_dtype)
+
+
 def param_specs(cfg: TransformerConfig, model_axis: str = "model", tp: int = 16):
-    raise NotImplementedError(f"param_specs: {A7E}")
+    """PartitionSpec tree matching init_params (Megatron TP over `model`)."""
+    m = model_axis
+    kv_shardable = cfg.n_kv_heads % tp == 0
+    layers: dict[str, Any] = {
+        "wq": P(None, None, m),
+        "wk": P(None, None, m) if kv_shardable else P(None, None, None),
+        "wv": P(None, None, m) if kv_shardable else P(None, None, None),
+        "wo": P(None, m, None),
+        "ln1": P(None, None),
+        "ln2": P(None, None),
+    }
+    if cfg.qkv_bias:
+        layers["bq"] = P(None, m)
+        layers["bk"] = P(None, m) if kv_shardable else P(None, None)
+        layers["bv"] = P(None, m) if kv_shardable else P(None, None)
+    if cfg.qk_norm:
+        layers["q_norm"] = P(None, None)
+        layers["k_norm"] = P(None, None)
+    if cfg.is_moe:
+        if cfg.n_experts % tp == 0:  # expert parallelism over `model`
+            layers["router"] = P(None, None, None)
+            layers["w1"] = P(None, m, None, None)
+            layers["w3"] = P(None, m, None, None)
+            layers["w2"] = P(None, m, None, None)
+        else:  # TP inside each expert
+            layers["router"] = P(None, None, None)
+            layers["w1"] = P(None, None, None, m)
+            layers["w3"] = P(None, None, None, m)
+            layers["w2"] = P(None, None, m, None)
+    else:
+        layers["w1"] = P(None, None, m)
+        layers["w3"] = P(None, None, m)
+        layers["w2"] = P(None, m, None)
+    return {
+        "embed": P(m, None),
+        "layers": layers,
+        "final_ln": P(None),
+        "lm_head": P(None, m),
+    }
 
 
 def input_specs(cfg: TransformerConfig, shape_kind: str, seq_len: int, batch: int):
-    raise NotImplementedError(f"input_specs: {A7E}")
+    """Each entry point's inputs as ``meta`` tensors (the dry run's)."""
+    tok = meta((batch, seq_len), torch.int32)
+    if shape_kind == "train":
+        return {"tokens": tok, "labels": meta((batch, seq_len), torch.int32)}
+    if shape_kind == "prefill":
+        return {"tokens": tok}
+    if shape_kind == "decode":
+        Sc = min(seq_len, cfg.sliding_window) if cfg.sliding_window > 0 else seq_len
+        cache = meta((cfg.n_layers, 2, batch, Sc, cfg.n_kv_heads, cfg.d_head),
+                     cfg.compute_dtype)
+        return {"cache": cache, "token": meta((batch,), torch.int32)}
+    raise ValueError(shape_kind)
 
 
 # ==========================================================================
@@ -313,6 +406,55 @@ def _live_blocks(qpc, kpc, window: int) -> list[list[tuple[int, bool]]]:
     return live
 
 
+def _attend(fn, q, k, v, *rest):
+    """``fn(q, k, v, *rest)``; on DTensors (the dry run) in a local region:
+    each rank attends its batch rows and its query heads with the kv heads
+    they read (all heads are independent), then the result is a DTensor of
+    q's placements."""
+    if not is_dtensor(q):
+        return fn(q, k, v, *rest)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    qpl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+           for p in q.placements]
+    kv_heads = k.shape[2]
+    n_head_shards = math.prod(mesh.size(i) for i, p in enumerate(qpl)
+                              if isinstance(p, Shard) and p.dim == 2)
+    kv_split = kv_heads % n_head_shards == 0
+    kpl = [p if isinstance(p, Shard) and (p.dim == 0 or kv_split) else Replicate()
+           for p in qpl]
+    q = q.redistribute(mesh, qpl)
+    k, v = (t.redistribute(mesh, kpl) if is_dtensor(t) else t for t in (k, v))
+    # kv heads replicated over an axis that splits the query heads: each
+    # rank reads its slice of them, so their cotangents sum over that axis
+    kgrad = [Partial() if isinstance(qp, Shard) and qp.dim == 2 and not kv_split
+             else kp for qp, kp in zip(qpl, kpl)]
+    ql = q.to_local()
+    kl, vl = (t.to_local(grad_placements=kgrad) for t in (k, v))
+    if not kv_split:  # this rank's query heads read a slice of the kv heads
+        G = q.shape[2] // kv_heads
+        coord, block = mesh.get_coordinate(), 0
+        for i, p in enumerate(qpl):
+            if isinstance(p, Shard) and p.dim == 2:
+                block = block * mesh.size(i) + coord[i]
+        h0 = block * ql.shape[2]
+        lo, hi = h0 // G, (h0 + ql.shape[2] - 1) // G + 1
+        kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+    return from_local(fn(ql, kl, vl, *rest).contiguous(), mesh, qpl, q.shape)
+
+
+def _host_live_blocks(q_pos, k_pos, nq: int, nk: int, window: int):
+    """``_live_blocks`` of the positions' chunks, read from real tensors
+    also under a fake mode (the dry run's positions are real)."""
+    from torch._subclasses.fake_tensor import FakeTensor, unset_fake_temporarily
+
+    if isinstance(q_pos, FakeTensor) or isinstance(k_pos, FakeTensor):
+        return _live_blocks(q_pos.reshape(nq, -1), k_pos.reshape(nk, -1), window)
+    with unset_fake_temporarily():
+        return _live_blocks(q_pos.reshape(nq, -1), k_pos.reshape(nk, -1), window)
+
+
 def chunked_attention(q, k, v, q_pos, k_pos, window: int, chunk: int):
     """Flash-style online-softmax attention, O(chunk^2) live scores.
 
@@ -334,7 +476,7 @@ def chunked_attention(q, k, v, q_pos, k_pos, window: int, chunk: int):
     qpc = q_pos.reshape(nq, C)
     kpc = k_pos.reshape(nk, C)
     out = []
-    for qi, live in enumerate(_live_blocks(qpc, kpc, window)):
+    for qi, live in enumerate(_host_live_blocks(q_pos, k_pos, nq, nk, window)):
         qb = qf[qi].view(B * KV, G * C, D)
         m = torch.full((B, KV, G, C), MASK_FILL, dtype=torch.float32,
                        device=q.device)
@@ -393,8 +535,6 @@ def moe_ffn(x, router, w1, w3, w2, cfg: TransformerConfig):
     ``torch.use_deterministic_algorithms``), the combine a gather.  The
     aux (Switch) loss counts the assignments before the capacity cut.
     """
-    if cfg.moe_shard_map:
-        raise NotImplementedError(f"moe_shard_map=True: {A7E}")
     T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     G = max(1, min(cfg.moe_groups, T))
@@ -422,6 +562,8 @@ def moe_ffn(x, router, w1, w3, w2, cfg: TransformerConfig):
     buf = torch.zeros((G, E, cap, d), dtype=x.dtype, device=x.device)
     buf = buf.index_put((g_i, e_i, p_i), xk.reshape(G, Tg * k, d),
                         accumulate=True)
+    ep = E % 16 == 0
+    buf = maybe_shard(buf, P(("pod", "data"), "model" if ep else None, None, None))
     h = _silu(torch.einsum("gecd,edf->gecf", buf, w1)) * torch.einsum(
         "gecd,edf->gecf", buf, w3)
     y = torch.einsum("gecf,efd->gecd", h, w2)  # [G, E, cap, d]
@@ -437,12 +579,100 @@ def moe_ffn(x, router, w1, w3, w2, cfg: TransformerConfig):
     return out.to(x.dtype), aux
 
 
+def _moe_local(x, router, w1, w3, w2, cfg: TransformerConfig, n_local_experts: int,
+               model_axis: str | None, data_axes_names: tuple = ()):
+    """Per-rank MoE body run inside ``shard_map``.
+
+    x: [T_local, d] (this rank's tokens).  Dispatch positions are computed
+    locally (one GShard group a rank).  Two modes:
+      * TP-in-expert (w1 local [E, d, ff/tp]): a partial y, combined
+        locally, then a ``psum`` of the TOKEN-sized output over `model`,
+        kept in the compute dtype;
+      * EP (w1 local [E/tp, d, ff]): ``all_to_all`` of the capacity buffer
+        over `model`, so each rank computes its resident experts, then
+        back.
+    The aux loss is ``pmean``ed over the data axes and `model`.
+    """
+    T, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    logits = x.float() @ router.float()
+    probs = torch.softmax(logits, -1)
+    gates, idx = _top_k(probs, k)
+    gates = (gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)).to(x.dtype)
+
+    cap = max(4, int(math.ceil(T * k / E * cfg.capacity_factor)))
+    mask = F.one_hot(idx, E).sum(1)  # [T, E] (top-k indices are distinct)
+    pos = torch.gather(torch.cumsum(mask, 0) - mask, 1, idx)
+    keep = pos < cap
+    pos_c = torch.where(keep, pos, cap - 1)
+
+    e_i, p_i = idx.reshape(-1), pos_c.reshape(-1)
+    xk = torch.where(keep[..., None], x[:, None, :], 0)
+    buf = torch.zeros((E, cap, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((e_i, p_i), xk.reshape(T * k, d), accumulate=True)
+
+    ep = n_local_experts < E
+    if ep and model_axis is not None:
+        tp = E // n_local_experts
+        # [E, cap, d] -> [tp, E/tp, cap, d]; after the all_to_all over
+        # model, dim 0 is the source rank: -> [E/tp, tp*cap, d]
+        bufe = all_to_all(buf.reshape(tp, n_local_experts, cap, d), model_axis)
+        bufe = bufe.transpose(0, 1).reshape(n_local_experts, tp * cap, d)
+        h = _silu(torch.einsum("ecd,edf->ecf", bufe, w1)) * torch.einsum(
+            "ecd,edf->ecf", bufe, w3)
+        y = torch.einsum("ecf,efd->ecd", h, w2)
+        y = y.reshape(n_local_experts, tp, cap, d).transpose(0, 1).contiguous()
+        y = all_to_all(y, model_axis).reshape(E, cap, d)
+    else:
+        h = _silu(torch.einsum("ecd,edf->ecf", buf, w1)) * torch.einsum(
+            "ecd,edf->ecf", buf, w3)
+        y = torch.einsum("ecf,efd->ecd", h, w2)  # partial over model when TP
+
+    yk = y[e_i, p_i].reshape(T, k, d)
+    out = torch.einsum("tk,tkd->td", gates * keep.to(gates.dtype), yk)
+    if not ep and model_axis is not None:
+        # keep the wire in the compute dtype: the operand is not upcast
+        out = psum(out.to(x.dtype), model_axis)
+    me = probs.mean(0)
+    ce = mask.sum(0).float() / (T * k)
+    aux = E * torch.sum(me * ce)
+    for ax in data_axes_names:
+        aux = pmean(aux, ax)
+    if model_axis is not None:
+        aux = pmean(aux, model_axis)
+    return out.to(x.dtype), aux
+
+
 def moe_ffn_shard_map(x, router, w1, w3, w2, cfg: TransformerConfig):
-    raise NotImplementedError(f"moe_ffn_shard_map: {A7E}")
+    """Explicit-collective MoE over the ambient mesh (``set_mesh``).
 
+    Falls back to ``moe_ffn`` when no mesh with a `model` axis is active,
+    and, as the reference does, when the token count cannot split over the
+    mesh.  EP shards the tokens over the data axes and `model`;
+    TP-in-expert shards them over the data axes only.
+    """
+    mesh = get_abstract_mesh()
+    if mesh is None or "model" not in axis_names(mesh):
+        return moe_ffn(x, router, w1, w3, w2, cfg)
+    dsh = data_axes(mesh)
+    tp = axis_size(mesh, "model")
+    ds = math.prod(axis_size(mesh, a) for a in dsh)
+    E = cfg.n_experts
+    T = x.shape[0]
+    ep = E % tp == 0 and T % (ds * tp) == 0 and T >= 4 * ds * tp
+    if (not ep and (T % ds != 0 or T < 4 * ds)) or not dsh:
+        # decode-sized token counts cannot shard over the mesh
+        return moe_ffn(x, router, w1, w3, w2, cfg)
+    w_spec = P("model", None, None) if ep else P(None, None, "model")
+    w2_spec = P("model", None, None) if ep else P(None, "model", None)
+    n_local = E // tp if ep else E
+    x_spec = P(dsh + ("model",), None) if ep else P(dsh, None)
 
-def _moe_local(*args, **kwargs):
-    raise NotImplementedError(f"_moe_local: {A7E}")
+    def body(xl, rl, w1l, w3l, w2l):
+        return _moe_local(xl, rl, w1l, w3l, w2l, cfg, n_local, "model", dsh)
+
+    return shard_map(body, mesh, (x_spec, P(None, None), w_spec, w_spec, w2_spec),
+                     (x_spec, P()))(x, router, w1, w3, w2)
 
 
 # ==========================================================================
@@ -485,31 +715,63 @@ def _layer(x, lp, positions, cfg: TransformerConfig, kv_cache=None,
         Sc = ck.shape[1]
         slot = cache_pos % Sc if cfg.sliding_window > 0 else cache_pos
         slot = min(max(slot, 0), Sc - S)  # dynamic_update_slice's clamp
-        ck[:, slot:slot + S] = kk
-        cv[:, slot:slot + S] = vv
+        _write_slots(ck, slot, kk)
+        _write_slots(cv, slot, vv)
         k_pos_abs = _cache_positions(Sc, cache_pos, cfg, x.device)
-        o = full_attention(q, ck, cv, positions, k_pos_abs, cfg.sliding_window)
+        o = _attend(full_attention, q, ck, cv, positions, k_pos_abs,
+                    cfg.sliding_window)
         new_kv = (ck, cv)
     else:
         if S > cfg.attn_chunk and S % cfg.attn_chunk == 0:
-            o = chunked_attention(q, kk, vv, positions, positions,
-                                  cfg.sliding_window, cfg.attn_chunk)
+            o = _attend(chunked_attention, q, kk, vv, positions, positions,
+                        cfg.sliding_window, cfg.attn_chunk)
         else:
-            o = full_attention(q, kk, vv, positions, positions,
-                               cfg.sliding_window)
+            o = _attend(full_attention, q, kk, vv, positions, positions,
+                        cfg.sliding_window)
         new_kv = (kk, vv)
-    o = o.reshape(B, S, cfg.q_dim) @ lp["wo"].to(cd)
+    # a DTensor's partial sums over `model` reduce here, as Megatron's
+    # all-reduce after the row-parallel product (no-op on plain tensors)
+    o = maybe_shard(o.reshape(B, S, cfg.q_dim) @ lp["wo"].to(cd), _BATCH)
     x = x + o.to(x.dtype)
 
     h = rms_norm(x, lp["ln2"]).to(cd)
     if cfg.is_moe:
-        y, aux = moe_ffn(h.reshape(B * S, d), lp["router"].to(cd),
-                         lp["w1"].to(cd), lp["w3"].to(cd), lp["w2"].to(cd), cfg)
-        y = y.reshape(B, S, d)
+        moe = moe_ffn_shard_map if cfg.moe_shard_map else moe_ffn
+        y, aux = moe(h.reshape(B * S, d), lp["router"].to(cd),
+                     lp["w1"].to(cd), lp["w3"].to(cd), lp["w2"].to(cd), cfg)
+        # tokens split over data x model may cut a sequence: back to whole
+        # sequences before the reshape (no-op on plain tensors)
+        y = maybe_shard(y, P(("pod", "data"), None)).reshape(B, S, d)
     else:
-        y = dense_ffn(h, lp["w1"].to(cd), lp["w3"].to(cd), lp["w2"].to(cd))
+        y = maybe_shard(dense_ffn(h, lp["w1"].to(cd), lp["w3"].to(cd),
+                                  lp["w2"].to(cd)), _BATCH)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y.to(x.dtype), aux, new_kv
+
+
+def _write_slots(c, slot: int, new) -> None:
+    """``c[:, slot:slot + S] = new`` in place.  On DTensors (the dry run)
+    in a local region: a write into a dimension that DTensor shards would
+    land in a gathered copy, so each rank writes the slots that fall in its
+    block of the sequence, ``new`` laid out as the cache's other
+    dimensions are."""
+    if not is_dtensor(c):
+        c[:, slot:slot + new.shape[1]] = new
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = c.device_mesh
+    seq = [i for i, p in enumerate(c.placements) if isinstance(p, Shard) and p.dim == 1]
+    pl = [Replicate() if i in seq else p for i, p in enumerate(c.placements)]
+    nl = (new.redistribute(mesh, pl).to_local() if is_dtensor(new) else new).to(c.dtype)
+    cl = c.to_local()
+    coord, block = mesh.get_coordinate(), 0
+    for i in seq:
+        block = block * mesh.size(i) + coord[i]
+    n = cl.shape[1]
+    lo, hi = max(slot, block * n), min(slot + nl.shape[1], (block + 1) * n)
+    if lo < hi:
+        cl[:, lo - block * n:hi - block * n] = nl[:, lo - slot:hi - slot]
 
 
 def _cache_positions(Sc: int, cache_pos: int, cfg: TransformerConfig, device):
@@ -524,8 +786,23 @@ def _cache_positions(Sc: int, cache_pos: int, cfg: TransformerConfig, device):
     return torch.where(slots <= cache_pos, slots, I32_MAX)
 
 
+def _arange(S: int, tokens) -> torch.Tensor:
+    """``torch.arange(S)`` on the tokens' device.  On fake tensors (the dry
+    run) a real host tensor: the chunk loop reads its values."""
+    from torch._subclasses.fake_tensor import FakeTensor, unset_fake_temporarily
+
+    local = tokens.to_local() if is_dtensor(tokens) else tokens
+    if isinstance(local, FakeTensor):
+        with unset_fake_temporarily():
+            return torch.arange(S)
+    return torch.arange(S, device=tokens.device)
+
+
 def _embed(model, tokens, cfg: TransformerConfig):
+    if is_dtensor(model.embed):
+        return lookup_rows(model.embed, tokens).to(cfg.compute_dtype)
     return model.embed[tokens].to(cfg.compute_dtype)
+
 
 
 def forward(model, tokens, cfg: TransformerConfig, positions=None):
@@ -534,8 +811,9 @@ def forward(model, tokens, cfg: TransformerConfig, positions=None):
     recomputed in the backward (``torch.utils.checkpoint``)."""
     B, S = tokens.shape
     if positions is None:
-        positions = torch.arange(S, device=tokens.device)
+        positions = _arange(S, tokens)
     x = _embed(model, tokens, cfg)
+    x = maybe_shard(x, _BATCH)
     names = sorted(n for n, _ in model.layers.named_parameters())
 
     def body(x, *vals):
@@ -559,6 +837,12 @@ def forward(model, tokens, cfg: TransformerConfig, positions=None):
 def _chunk_ce(xs, head, ls):
     """Summed cross-entropy of one sequence chunk: xs [B,C,d], ls [B,C]."""
     logits = (xs @ head).float()
+    if is_dtensor(logits):  # the dry run: gather the vocab before the gold pick
+        from torch.distributed.tensor import Replicate, Shard
+
+        logits = logits.redistribute(logits.device_mesh, [
+            Replicate() if not isinstance(p, Shard) or p.dim == logits.ndim - 1
+            else p for p in logits.placements])
     lse = torch.logsumexp(logits, -1)
     gold = torch.gather(logits, -1, ls[..., None].long())[..., 0]
     return (lse - gold).sum()
@@ -614,16 +898,24 @@ def prefill_step(model, tokens, cfg: TransformerConfig):
     expects position p in slot p % window, so the two line up only when S
     is a multiple of the window."""
     B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)
+    positions = _arange(S, tokens)
     x = _embed(model, tokens, cfg)
+    x = maybe_shard(x, _BATCH)
     w = cfg.sliding_window
     Sc = w if 0 < w < S else S
-    cache = torch.empty((cfg.n_layers, 2, B, Sc, cfg.n_kv_heads, cfg.d_head),
-                        dtype=cfg.compute_dtype, device=tokens.device)
-    for li, lp in enumerate(layer_params(model)):
-        x, _aux, kv = _layer(x, lp, positions, cfg)
-        cache[li, 0] = kv[0][:, S - Sc:]
-        cache[li, 1] = kv[1][:, S - Sc:]
+    if is_dtensor(x):  # the dry run: each layer's kv kept, stacked at the end
+        kvs = []
+        for lp in layer_params(model):
+            x, _aux, kv = _layer(x, lp, positions, cfg)
+            kvs.append(torch.stack([t[:, S - Sc:] for t in kv]))
+        cache = torch.stack(kvs)
+    else:
+        cache = torch.empty((cfg.n_layers, 2, B, Sc, cfg.n_kv_heads, cfg.d_head),
+                            dtype=cfg.compute_dtype, device=tokens.device)
+        for li, lp in enumerate(layer_params(model)):
+            x, _aux, kv = _layer(x, lp, positions, cfg)
+            cache[li, 0] = kv[0][:, S - Sc:]
+            cache[li, 1] = kv[1][:, S - Sc:]
     x = rms_norm(x[:, -1:], model.final_ln)
     logits = (x @ model.lm_head.to(cfg.compute_dtype)).float()
     return logits[:, 0], cache

@@ -219,17 +219,52 @@ def test_group_edges_by_dst_shard_matches(n_nodes, n_shards):
         assert (np.minimum(dst // n_loc, n_shards - 1) == s).all()
 
 
-def test_mesh_names_wait_for_the_several_device_slice():
+def test_mesh_names_wait_for_the_several_device_slice(tmp_path):
+    """The mesh names, which raised until the several-device slice: the
+    specs equal the reference's; on a 1-rank mesh the dst-sharded loss and
+    its gradients equal ``loss_fn``'s (and the reference's), from edges
+    grouped by ``group_edges_by_dst_shard``; without a mesh it is
+    ``loss_fn``; an abstract mesh cannot run it."""
+    from jax.sharding import PartitionSpec as JP
+    from test_torch_mesh import _norm, one_rank_mesh
+
+    from repro_torch.launch.mesh import Mesh, set_mesh
+
     rcfg, tcfg = _cfgs(False)
-    _, model = _carry(rcfg, tcfg)
-    _, tb = _batch(tcfg)
-    for call in (lambda: TG.param_specs(tcfg), lambda: TG.input_specs(tcfg, 8, 16),
-                 lambda: TG.batch_specs(tcfg), lambda: TG.batch_specs_sharded(tcfg),
-                 lambda: TG.forward_dst_sharded(model, tb["feats"], tb["edges"],
-                                                tb["edge_mask"], tcfg, ("data",), 2),
-                 lambda: TG.loss_fn_dst_sharded(model, tb, tcfg, mesh=object())):
-        with pytest.raises(NotImplementedError, match="A7e"):
-            call()
+    params, model = _carry(rcfg, tcfg)
+    assert _norm(TG.param_specs(tcfg)) == _norm(RG.param_specs(rcfg))
+    assert _norm(TG.batch_specs(tcfg)) == _norm(RG.batch_specs(rcfg))
+    assert _norm(TG.batch_specs_sharded(tcfg)) == _norm(RG.batch_specs_sharded(rcfg))
+    assert {k: (tuple(v.shape), str(v.dtype)[6:]) for k, v in TG.input_specs(
+        tcfg, 8, 16).items()} == {k: (v.shape, str(v.dtype)) for k, v in
+                                  RG.input_specs(rcfg, 8, 16).items()}
+    assert _norm(RG.batch_specs(rcfg))["feats"] == _norm(JP())
+    rb, tb = _batch(tcfg)
+    # every edge real, as in the reference's test: the grouping's mask
+    # marks the grouped edges, not the batch's padding
+    rb["edge_mask"][:] = True
+    tb["edge_mask"] = torch.from_numpy(rb["edge_mask"])
+    ge, gmask, _ = TG.group_edges_by_dst_shard(rb["edges"], rb["feats"].shape[0], 1)
+    sb = dict(tb, edges=torch.from_numpy(ge), edge_mask=torch.from_numpy(gmask))
+    named = param_dict(model)
+    want = TG.loss_fn(model, tb, tcfg)
+    gwant = torch.autograd.grad(want, list(named.values()))
+    ref = float(RG.loss_fn(params, jax.tree_util.tree_map(jnp.asarray, rb), rcfg))
+    assert float(TG.loss_fn_dst_sharded(model, tb, tcfg).detach()) == float(want.detach())
+    with one_rank_mesh(tmp_path) as mesh:
+        got = TG.loss_fn_dst_sharded(model, sb, tcfg, mesh=mesh)
+        ggot = torch.autograd.grad(got, list(named.values()))
+        with set_mesh(mesh), torch.no_grad():
+            logits = TG.forward_dst_sharded(model, sb["feats"], sb["edges"],
+                                            sb["edge_mask"], tcfg, ("data", "model"), 1)
+            plain = TG.forward(model, tb["feats"], tb["edges"], tb["edge_mask"], tcfg)
+    np.testing.assert_allclose(logits.numpy(), plain.numpy(), atol=1e-6, rtol=1e-5)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    np.testing.assert_allclose(float(got), ref, rtol=1e-6)
+    for k, a, b in zip(named, ggot, gwant):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-4, err_msg=k)
+    with pytest.raises(ValueError, match="abstract"):
+        TG.loss_fn_dst_sharded(model, sb, tcfg, mesh=Mesh((1, 1), ("data", "model")))
 
 
 def test_backward_keeps_no_message_tensor():

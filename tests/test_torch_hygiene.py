@@ -63,7 +63,9 @@ def test_scanner_flags_what_it_must(tmp_path):
     "repro_torch.configs.command_r_35b", "repro_torch.configs.mixtral_8x22b",
     "repro_torch.configs.moonshot_v1_16b_a3b", "repro_torch.examples.train_lm",
     "repro_torch.models.gnn", "repro_torch.data.graph_data",
-    "repro_torch.configs.gin_tu",
+    "repro_torch.configs.gin_tu", "repro_torch.launch.mesh",
+    "repro_torch.launch.dryrun", "repro_torch.launch.analysis",
+    "repro_torch.launch.hlo_walker", "repro_torch.optim.compress",
 ])
 def test_import_leaves_no_jax_or_repro_module(module):
     code = (

@@ -78,6 +78,25 @@ def test_serve_ranked_cpu_compare_scalar(resident, capsys):
     assert got["arena_device_bytes"] == got["engine"].arena.device_nbytes("cpu")
 
 
+def test_build_ranked_then_serve_ranked_is_run_ranked():
+    """``run --ranked`` is its two halves: ``build_ranked`` (host only) then
+    ``serve_ranked`` -- the same index, queries and top-k."""
+    args = serve.parse_args(RANKED + ["--device", "cpu"])
+    whole = serve.run(args)
+    built = serve.build_ranked(args)
+    assert set(built) == {"index", "queries", "n_postings", "freqs_s", "build_s",
+                          "bpi"}
+    assert built["queries"] == whole["queries"]
+    assert built["n_postings"] == whole["n_postings"] and built["bpi"] == whole["bpi"]
+    for a, b in zip((whole["index"].payload, whole["index"].freq_payload),
+                    (built["index"].payload, built["index"].freq_payload)):
+        np.testing.assert_array_equal(a, b)
+    served = serve.serve_ranked(args, built["index"], built["queries"])
+    for (gd, gs), (wd, ws) in zip(served["results"], whole["results"]):
+        np.testing.assert_array_equal(gd, wd)
+        np.testing.assert_array_equal(gs, ws)
+
+
 def test_serve_ranked_default_device_needs_cuda():
     if __import__("torch").cuda.is_available():
         pytest.skip("this machine has a CUDA card")

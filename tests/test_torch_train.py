@@ -88,10 +88,36 @@ def test_sparse_step_matches_the_jitted_jax_step(arch):
     _assert_params_close(got, tree, atol=1e-5, rtol=1e-4)
 
 
-def test_sparse_step_waits_for_the_mesh_and_takes_dcn_or_dlrm():
+def test_sparse_step_waits_for_the_mesh_and_takes_dcn_or_dlrm(tmp_path):
+    """The routed sparse step (``mesh=``), which raised until the
+    several-device slice: on a 1-rank mesh it equals the local step bit for
+    bit (parameters, accumulator, losses) and drops no row; the step takes
+    dcn or dlrm only."""
+    from test_torch_mesh import one_rank_mesh
+
+    from repro_torch.data.recsys_data import make_ctr_batch
+    from repro_torch.models import recsys as TR
+
     cfg = get_arch("dcn-v2").smoke
-    with pytest.raises(NotImplementedError, match="A7e"):
-        make_sparse_recsys_train_step(cfg, mesh=object())
+    init = convert.recsys_params_to_arrays(TR.init_model(cfg, 0, "cpu"))
+    with one_rank_mesh(tmp_path) as mesh:
+        runs = {}
+        for tag, kw in (("local", {}), ("routed", dict(
+                mesh=mesh, table_axes=("model", "data"), batch_axes=("data", "model")))):
+            model = convert.recsys_params_from_arrays(init, cfg, "cpu")
+            opt = sparse_opt_init(model)
+            step = make_sparse_recsys_train_step(cfg, **kw)
+            losses = []
+            for s in range(3):
+                b = make_ctr_batch(np.random.default_rng(s), cfg, 64)
+                _, _, m = step(model, opt, {k: torch.from_numpy(v) for k, v in b.items()})
+                losses.append(float(m["loss"]))
+            runs[tag] = (model, opt, losses, m)
+    (lm, lo, ll, _), (rm, ro, rl, met) = runs["local"], runs["routed"]
+    assert ll == rl and int(met["dropped"]) == 0
+    for k, v in param_dict(lm).items():
+        assert torch.equal(param_dict(rm)[k], v), k
+    assert torch.equal(ro["table_acc"], lo["table_acc"])
     with pytest.raises(ValueError, match="dcn or dlrm"):
         make_sparse_recsys_train_step(get_arch("din").smoke)
 

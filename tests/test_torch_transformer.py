@@ -167,17 +167,45 @@ def test_cast_tree_matches_the_reference():
     np.testing.assert_array_equal(got["b"][0].numpy(), np.asarray(want["b"][0]))
 
 
-def test_mesh_names_wait_for_the_several_device_slice():
+def test_mesh_names_wait_for_the_several_device_slice(tmp_path):
+    """The mesh names, which raised until the several-device slice: the
+    specs equal the reference's; ``moe_ffn_shard_map`` without a mesh is
+    ``moe_ffn``; on a 1-rank mesh a forward with ``moe_shard_map=True``
+    (the TP-in-expert branch, its ``psum`` over the group) equals the
+    reference's forward and the port's without it; ``_moe_local`` with no
+    axis is one GShard group."""
+    from test_torch_mesh import _norm, one_rank_mesh
+
+    from repro_torch.launch.mesh import set_mesh
+
     rcfg, tcfg = _cfgs(**BASE, n_experts=4, top_k=2)
-    for call in (lambda: TT.param_specs(tcfg), lambda: TT.input_specs(tcfg, "train", 8, 2),
-                 lambda: TT.moe_ffn_shard_map(None, None, None, None, None, tcfg),
-                 lambda: TT._moe_local()):
-        with pytest.raises(NotImplementedError, match="A7e"):
-            call()
+    for tp in (1, 2, 4):
+        assert _norm(TT.param_specs(tcfg, tp=tp)) == _norm(RT.param_specs(rcfg, tp=tp))
+    for kind in ("train", "prefill", "decode"):
+        assert {k: (tuple(v.shape), str(v.dtype)[6:]) for k, v in TT.input_specs(
+            tcfg, kind, 8, 2).items()} == {k: (v.shape, str(v.dtype)) for k, v in
+                                          RT.input_specs(rcfg, kind, 8, 2).items()}
     cfg = dataclasses.replace(tcfg, moe_shard_map=True)
-    _, model = _carry(rcfg, cfg)
-    with pytest.raises(NotImplementedError, match="A7e"):
-        TT.forward(model, torch.zeros((1, 4), dtype=torch.long), cfg)
+    params, model = _carry(rcfg, cfg)
+    tok = _tokens(rcfg.vocab)
+    with torch.no_grad():
+        plain, aux0 = TT.forward(model, _t(tok).long(), tcfg)
+        same, _ = TT.forward(model, _t(tok).long(), cfg)  # no mesh: moe_ffn
+        lp = TT.layer_params(model)[0]
+        x = torch.randn(32, tcfg.d_model, generator=torch.Generator().manual_seed(0))
+        args = (x, lp["router"], lp["w1"], lp["w3"], lp["w2"])
+        local, aux_l = TT._moe_local(*args, cfg, cfg.n_experts, None)
+        one, aux_1 = TT.moe_ffn(*args, tcfg)
+    np.testing.assert_array_equal(same.numpy(), plain.numpy())
+    np.testing.assert_allclose(local.numpy(), one.numpy(), atol=1e-6, rtol=1e-5)
+    np.testing.assert_allclose(float(aux_l), float(aux_1), rtol=1e-6)
+    ref, _ = RT.forward(params, jnp.asarray(tok), rcfg)
+    with one_rank_mesh(tmp_path) as mesh, set_mesh(mesh), torch.no_grad():
+        got, aux = TT.forward(model, _t(tok).long(), cfg)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-6, rtol=1e-5)
+    np.testing.assert_allclose(float(aux), float(aux0), rtol=1e-6)
 
 
 def test_tree_carries_across_both_ways():
