@@ -240,7 +240,9 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    ``moe_shard_map=True`` inside ``set_mesh`` (the TP-in-expert branch,
    its psum over the group) within 1e-4 of ``moe_ffn``'s (``mesh moe:``);
    (e) ``python -m repro_torch.launch.dryrun`` for qwen3-0.6b train_4k,
-   gin-tu ogb_products and dcn-v2 train_batch at ``--mesh single``, run by
+   gin-tu ogb_products, dcn-v2 train_batch, din retrieval_cand (candidates
+   sharded over the data axes) and mixtral-8x22b long_500k (split-K
+   attention, the one-token MoE) at ``--mesh single``, run by
    a host worker that sees no card, started before phase 3c: every record
    ``ok``, their roofline terms printed (``mesh dryrun:``).  The phase
    prints its seconds against its budget of 90 s;
@@ -511,7 +513,8 @@ MESH_GNN_BF16_REL = 2e-2  # bf16 messages: the loss and the gradients' relative 
 MESH_MOE_TOKENS = 4096
 MESH_MOE_ATOL = 1e-4  # test_sharded_paths.py:62
 MESH_DRYRUN = (("qwen3-0.6b", "train_4k"), ("gin-tu", "ogb_products"),
-               ("dcn-v2", "train_batch"))
+               ("dcn-v2", "train_batch"), ("din", "retrieval_cand"),
+               ("mixtral-8x22b", "long_500k"))
 DEVICE = "cuda"
 
 
@@ -4464,7 +4467,7 @@ def run_mesh_path(torch, card, batches, sparse, products, moon_layers, dry_wait)
     bad = {k: r.get("error") for k, r in recs.items() if r["status"] != "ok"}
     if bad:
         fail(f"mesh dryrun: {bad}")
-    summary = {k: {"n_devices": r["summary"]["n_devices"],
+    summary = {k: {"status": r["status"], "n_devices": r["summary"]["n_devices"],
                    "flops_per_device": r["summary"]["flops_per_device"],
                    "bytes_per_device": r["summary"]["bytes_per_device"],
                    "collective_wire_bytes_per_device":

@@ -121,6 +121,16 @@ def _opt_shape(params_shape) -> dict:
             "count": 0}
 
 
+def _reduced(grads: dict, like: dict) -> dict:
+    """The gradients at the placements of ``like`` (the AdamW moments):
+    on DTensors (the dry run) each partial gradient is reduced once here,
+    all-reduced or reduce-scattered onto ZeRO-1's shards, where the clip
+    and both moments would each reduce it again (DTensor keeps no
+    reduction).  Plain tensors pass as they are."""
+    return {k: g.redistribute(g.device_mesh, like[k].placements)
+            if is_dtensor(g) and is_dtensor(like[k]) else g for k, g in grads.items()}
+
+
 def make_train_step(loss_fn, cfg, base_lr: float = 1e-3, warmup: int = 10,
                     total: int = 100_000):
     """Generic loss -> grad -> clip -> AdamW step.
@@ -136,7 +146,8 @@ def make_train_step(loss_fn, cfg, base_lr: float = 1e-3, warmup: int = 10,
         params = param_dict(model)
         loss = loss_fn(model, batch, cfg)
         grads = torch.autograd.grad(loss, list(params.values()))
-        grads, gnorm = clip_by_global_norm(dict(zip(params, grads)), 1.0)
+        grads = _reduced(dict(zip(params, grads)), opt_state["m"])
+        grads, gnorm = clip_by_global_norm(grads, 1.0)
         lr = cosine_lr(opt_state["count"] + 1, base_lr, warmup, total)
         adamw_update(grads, opt_state, params, lr)
         return model, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
@@ -578,8 +589,9 @@ def make_sparse_recsys_train_step(cfg, base_lr: float = 1e-2, mesh=None,
         loss = torch.mean(torch.clamp_min(logits, 0) - logits * y
                           + torch.log1p(torch.exp(-logits.abs())))
         *g_other, g_emb = torch.autograd.grad(loss, [*params.values(), emb])
-        g_other, gnorm = clip_by_global_norm(dict(zip(params, g_other)), 1.0)
         mlp = opt_state["mlp"]
+        g_other = _reduced(dict(zip(params, g_other)), mlp["m"])
+        g_other, gnorm = clip_by_global_norm(g_other, 1.0)
         lr = cosine_lr(mlp["count"] + 1, base_lr, 10, 100_000)
         adamw_update(g_other, mlp, params, lr)
         # rowwise Adagrad, scatter only

@@ -466,6 +466,13 @@ def pmean(x, axes, mesh=None):
     return _Psum.apply(x, group, len(order))
 
 
+def pmax(x, axes, mesh=None):
+    """``lax.pmax``, without a gradient (a decode step's softmax max)."""
+    mesh = mesh or get_abstract_mesh()
+    group, _ = mesh.group(entry_axes(axes))
+    return _wait(_fc().all_reduce(x.contiguous(), "max", group.group_name))
+
+
 def all_to_all(x, axes, mesh=None):
     """``lax.all_to_all(x, axes, 0, 0)``: chunk s of dim 0 goes to shard s,
     and chunk s of the result came from shard s."""
@@ -537,6 +544,26 @@ def _tree_map(fn, tree, spec):
     raise TypeError(f"spec {spec!r} does not fit {type(tree).__name__}")
 
 
+def _moved_shard(have, want):
+    """The mesh dimension whose split moves from one tensor dimension to
+    another (``Shard(a)`` to ``Shard(b)``), where exactly one does and no
+    other mesh dimension splits a or b; else None.  DTensor does this
+    move by an all-gather on a CPU group (the dry run's), a device's
+    whole tensor on the wire; the mesh paths' all-to-all moves a block."""
+    from torch.distributed.tensor import Shard
+
+    moves = [i for i, (h, w) in enumerate(zip(have, want))
+             if isinstance(h, Shard) and isinstance(w, Shard) and h.dim != w.dim]
+    if len(moves) != 1:
+        return None
+    i = moves[0]
+    dims = (have[i].dim, want[i].dim)
+    if any(isinstance(p, Shard) and p.dim in dims
+           for j, p in enumerate([*have, *want]) if j % len(have) != i):
+        return None
+    return i
+
+
 def local_block(x, spec, mesh):
     """This rank's block of ``x`` under ``spec``: a DTensor redistributed
     and its local tensor taken; a plain (global) tensor cut by the shard
@@ -547,9 +574,21 @@ def local_block(x, spec, mesh):
         from torch.distributed.tensor import Partial, Replicate
 
         want = spec_to_placements(spec, mesh, x.ndim)
-        x = x.redistribute(x.device_mesh, want)
-        grad = [Partial() if isinstance(p, Replicate) else p for p in want]
-        return x.to_local(grad_placements=grad)
+        moved = _moved_shard(x.placements, want)
+        mid = list(want)
+        if moved is not None:
+            mid[moved] = x.placements[moved]
+        x = x.redistribute(x.device_mesh, mid)
+        grad = [Partial() if isinstance(p, Replicate) else p for p in mid]
+        x = x.to_local(grad_placements=grad)
+        if moved is None:
+            return x
+        # the blocks move from one dimension's split to another's: an
+        # all-to-all over the axis (chunk s of the new dimension to shard s)
+        a, b = mid[moved].dim, want[moved].dim
+        axis = mesh.axis_names[moved]
+        chunks = torch.stack(x.chunk(mesh.shape[axis], b))
+        return torch.cat(all_to_all(chunks, axis, mesh).unbind(0), a)
     if x.requires_grad:
         # each rank's cotangent covers its block and its share of the work:
         # the global gradient is their sum over every rank

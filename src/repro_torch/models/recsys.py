@@ -30,8 +30,17 @@ import torch
 from torch import nn
 
 from ..api import resolve_device
-from ..launch.mesh import P, is_dtensor, lookup_rows
-from .common import dense_init, meta, meta_tree, rms_norm, split_keys, tree_map
+from ..launch.mesh import P, from_local, is_dtensor, lookup_rows
+from .common import (
+    dense_init,
+    meta,
+    meta_tree,
+    param_dict,
+    rms_norm,
+    split_keys,
+    tree_map,
+    unflatten,
+)
 
 KINDS = ("dcn", "dlrm", "din", "bst")
 MASK_FILL = -1e30  # the reference's fill of masked scores
@@ -264,6 +273,16 @@ def _mlp_apply(layers, x, act=torch.relu, last_act: bool = True):
 # Embedding lookup (the multi-hot bag goes through kernels/embedding_bag)
 # --------------------------------------------------------------------------
 
+def _reduce_rows(rows):
+    """A row-sharded lookup's partial sums reduced once, as the reference's
+    masked gather is followed by one all-reduce (left partial, each use in
+    the head reduces them again)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    return rows.redistribute(rows.device_mesh, [
+        Replicate() if isinstance(p, Partial) else p for p in rows.placements])
+
+
 def embed_fields(table, sparse_ids, rows_per_field: int):
     """sparse_ids [B, F] per-field ids -> [B, F, d] (ids offset per field).
     The ids must lie in [0, rows_per_field): the reference's ``take`` would
@@ -271,7 +290,7 @@ def embed_fields(table, sparse_ids, rows_per_field: int):
     B, F = sparse_ids.shape
     offs = torch.arange(F, device=sparse_ids.device) * rows_per_field
     if is_dtensor(table):  # the dry run
-        return lookup_rows(table, sparse_ids.long() + offs[None, :])
+        return _reduce_rows(lookup_rows(table, sparse_ids.long() + offs[None, :]))
     idx = (sparse_ids.long() + offs[None, :]).reshape(-1)
     return table.index_select(0, idx).reshape(B, F, table.shape[1])
 
@@ -303,7 +322,7 @@ def take_items(table, ids):
     """``table[ids]`` for ids of any shape: [..., d] (the reference's
     ``jnp.take``; ids must lie in [0, item_vocab))."""
     if is_dtensor(table):  # the dry run
-        return lookup_rows(table, ids)
+        return _reduce_rows(lookup_rows(table, ids))
     return table.index_select(0, ids.reshape(-1).long()).reshape(
         *ids.shape, table.shape[1])
 
@@ -368,6 +387,46 @@ def serve_score(model, batch: dict, cfg: RecsysConfig):
     return forward(model, batch, cfg)
 
 
+def _local_model(model):
+    """``model`` over the local tensors of its replicated leaves, the
+    row-sharded tables left out: the heads' weights in a local region (the
+    dry run)."""
+    leaves = {k: v.detach().to_local() for k, v in param_dict(model).items()
+              if k not in ("table", "item_table")}
+    return Recsys(model.cfg, unflatten(leaves)).requires_grad_(False)
+
+
+def _per_candidate(fn, model, cand, *rows):
+    """``fn(model, cand, *rows)``, whose result has one row a candidate.  On
+    DTensors (the dry run) in a local region, as the reference's plan runs
+    it: each rank scores its own candidates (``cand``'s block of rows over
+    the axes that shard them) against the user's replicated ``rows``, with
+    the replicated weights whole, and the result takes those candidates'
+    placements.  (DTensor's broadcast of a replicated user row against
+    sharded candidates either replicates the candidates or fails to view
+    the sharded rows.)"""
+    if not is_dtensor(cand):
+        return fn(model, cand, *rows)
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = cand.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in cand.placements]
+    local = [r.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+             if is_dtensor(r) else r for r in rows]
+    out = fn(None if model is None else _local_model(model),
+             cand.redistribute(mesh, pl).to_local(), *local)
+    return from_local(out.contiguous(), mesh, pl, (cand.shape[0], *out.shape[1:]))
+
+
+def _with_candidates(_model, cand, sparse):
+    """The user's ``sparse`` ids [1, n_sparse] broadcast to the candidates,
+    field 0 replaced by the candidate: [C, n_sparse]."""
+    out = sparse.expand(cand.shape[0], sparse.shape[1]).clone()
+    out[:, 0] = cand
+    return out
+
+
 def retrieval_step(model, batch: dict, cfg: RecsysConfig):
     """One user against ``candidates`` [C], one batched forward.  For
     dcn/dlrm the candidate replaces sparse field 0 and the user's other
@@ -375,18 +434,24 @@ def retrieval_step(model, batch: dict, cfg: RecsysConfig):
     target of the user's broadcast history."""
     _check_kind(cfg.kind)
     cand = batch["candidates"]
-    C = cand.shape[0]
     if cfg.kind in ("dcn", "dlrm"):
-        sparse = batch["sparse"].expand(C, cfg.n_sparse).clone()
-        sparse[:, 0] = cand
-        dense = batch["dense"].expand(C, cfg.n_dense)
-        return forward(model, {"dense": dense, "sparse": sparse}, cfg)
+        sparse = _per_candidate(_with_candidates, None, cand, batch["sparse"])
+        emb = embed_fields(model.table, sparse, cfg.rows_per_field)  # [C, F, d]
+
+        def score(model, emb, dense):
+            return ctr_head(model, dense.expand(emb.shape[0], cfg.n_dense), emb, cfg)
+
+        return _per_candidate(score, model, emb, batch["dense"])
     hist = take_items(model.item_table, batch["history"])  # [1, L, d]
-    hist = hist.expand(C, *hist.shape[1:])
-    mask = batch["hist_mask"].expand(C, batch["hist_mask"].shape[1])
     tgt = take_items(model.item_table, cand)  # [C, d]
     head = _din_head if cfg.kind == "din" else _bst_head
-    return head(model, hist, mask, tgt, cfg)
+
+    def score(model, tgt, hist, mask):
+        C = tgt.shape[0]
+        return head(model, hist.expand(C, *hist.shape[1:]),
+                    mask.expand(C, mask.shape[1]), tgt, cfg)
+
+    return _per_candidate(score, model, tgt, hist, batch["hist_mask"])
 
 
 # --------------------------------------------------------------------------

@@ -34,13 +34,19 @@ mesh's explicit collectives (``launch.mesh.shard_map``), an
 split over it (EP), else a token-sized ``psum`` of each rank's slice of
 every expert (TP-in-expert).  On DTensors (the dry run) the attention,
 the embedding lookup, the loss's vocabulary and the prefill's cache take
-local regions or explicit redistributes (``_attend``, ``lookup_rows``);
-plain tensors take the paths above unchanged.
+local regions or explicit redistributes (``_attend``, ``lookup_rows``),
+as do a training step's projections to its own heads
+(``_attend_own_heads``), a decode cache split over its slots
+(``_split_k_attention``) and a decode step's few tokens through the MoE
+(``_moe_replicated``); the layer input's cotangents sum once
+(``_sum_cotangents``) and the remat keeps the reference's saved products
+(``_remat_policy``).  Plain tensors take the paths above unchanged.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -61,6 +67,7 @@ from ..launch.mesh import (
     is_dtensor,
     keep_axes,
     lookup_rows,
+    pmax,
     pmean,
     psum,
     shard_map,
@@ -84,6 +91,19 @@ def maybe_shard(x: torch.Tensor, spec) -> torch.Tensor:
         return x
     return x.redistribute(x.device_mesh, spec_to_placements(
         keep_axes(spec, mesh), mesh, x.ndim))
+
+
+def _sum_cotangents(x: torch.Tensor) -> torch.Tensor:
+    """The identity.  On a DTensor (the dry run) its backward reduces the
+    cotangent to ``x``'s placements, as Megatron's all-reduce of a
+    column-parallel input's gradient: the partial cotangents that each
+    rank's heads or ff slice leave are summed here once, so the backward of
+    the layer runs on whole ones.  (Left partial, DTensor reduce-scatters
+    them onto the next product's contraction and gathers its weight
+    whole.)"""
+    if not is_dtensor(x):
+        return x
+    return from_local(x.to_local(), x.device_mesh, x.placements, x.shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -406,32 +426,55 @@ def _live_blocks(qpc, kpc, window: int) -> list[list[tuple[int, bool]]]:
     return live
 
 
+def _split_k_attention(q, k, v, q_pos, k_pos, window: int, axes):
+    """``full_attention`` over keys whose sequence is split over the mesh
+    ``axes`` (a decode cache, the reference's split-K): each rank scores
+    its block of the slots, and the softmax combines over ``axes`` (the
+    scores' max, then the sums of the weights and of the weighted values).
+    Inside ``_attend``'s local region; ``k_pos`` is this block's."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qf = _f32_heads(q.reshape(B, Sq, KV, G, D), 0, 2, 3, 1, 4)  # [B,KV,G,Sq,D]
+    kf = _f32_heads(k, 0, 2, 1, 3)  # [B,KV,Sk,D]
+    vf = _f32_heads(v, 0, 2, 1, 3)
+    s = torch.bmm(qf.view(B * KV, G * Sq, D), kf.view(B * KV, Sk, D).transpose(1, 2))
+    s = s.view(B, KV, G, Sq, Sk) * (1.0 / math.sqrt(D))
+    mask = _attn_scores_mask(q_pos, k_pos, window)
+    s = torch.where(mask[None, None, None], s, MASK_FILL)
+    p = torch.exp(s - pmax(s.amax(-1, keepdim=True), axes))
+    l = psum(p.sum(-1), axes)  # [B,KV,G,Sq]
+    o = psum(torch.bmm(p.view(B * KV, G * Sq, Sk), vf.view(B * KV, Sk, D)), axes)
+    o = o.view(B, KV, G, Sq, D) / l[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
 def _attend(fn, q, k, v, *rest):
     """``fn(q, k, v, *rest)``; on DTensors (the dry run) in a local region:
     each rank attends its batch rows and its query heads with the kv heads
     they read (all heads are independent), then the result is a DTensor of
-    q's placements."""
+    q's placements.  Keys whose sequence is sharded (a decode cache, ``fn``
+    ``full_attention``) stay so: q is gathered over those axes, and each
+    rank attends its block of the slots (``_split_k_attention``).  No
+    gradient flows here on DTensors: a training step attends in
+    ``_attend_own_heads``."""
     if not is_dtensor(q):
         return fn(q, k, v, *rest)
-    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor import Replicate, Shard
 
     mesh = q.device_mesh
-    qpl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
-           for p in q.placements]
+    seq = [i for i, p in enumerate(k.placements) if isinstance(p, Shard) and p.dim == 1]
+    qpl = [p if isinstance(p, Shard) and p.dim in (0, 2) and i not in seq else Replicate()
+           for i, p in enumerate(q.placements)]
     kv_heads = k.shape[2]
     n_head_shards = math.prod(mesh.size(i) for i, p in enumerate(qpl)
                               if isinstance(p, Shard) and p.dim == 2)
     kv_split = kv_heads % n_head_shards == 0
-    kpl = [p if isinstance(p, Shard) and (p.dim == 0 or kv_split) else Replicate()
-           for p in qpl]
-    q = q.redistribute(mesh, qpl)
-    k, v = (t.redistribute(mesh, kpl) if is_dtensor(t) else t for t in (k, v))
-    # kv heads replicated over an axis that splits the query heads: each
-    # rank reads its slice of them, so their cotangents sum over that axis
-    kgrad = [Partial() if isinstance(qp, Shard) and qp.dim == 2 and not kv_split
-             else kp for qp, kp in zip(qpl, kpl)]
-    ql = q.to_local()
-    kl, vl = (t.to_local(grad_placements=kgrad) for t in (k, v))
+    kpl = [Shard(1) if i in seq else
+           p if isinstance(p, Shard) and (p.dim == 0 or kv_split) else Replicate()
+           for i, p in enumerate(qpl)]
+    ql = q.redistribute(mesh, qpl).to_local()
+    kl, vl = (t.redistribute(mesh, kpl).to_local() for t in (k, v))
     if not kv_split:  # this rank's query heads read a slice of the kv heads
         G = q.shape[2] // kv_heads
         coord, block = mesh.get_coordinate(), 0
@@ -441,7 +484,17 @@ def _attend(fn, q, k, v, *rest):
         h0 = block * ql.shape[2]
         lo, hi = h0 // G, (h0 + ql.shape[2] - 1) // G + 1
         kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
-    return from_local(fn(ql, kl, vl, *rest).contiguous(), mesh, qpl, q.shape)
+    if seq:
+        q_pos, k_pos, window = rest
+        coord, block = mesh.get_coordinate(), 0
+        for i in seq:
+            block = block * mesh.size(i) + coord[i]
+        n = kl.shape[1]
+        out = _split_k_attention(ql, kl, vl, q_pos, k_pos[block * n:(block + 1) * n],
+                                 window, tuple(mesh.mesh_dim_names[i] for i in seq))
+    else:
+        out = fn(ql, kl, vl, *rest)
+    return from_local(out.contiguous(), mesh, qpl, q.shape)
 
 
 def _host_live_blocks(q_pos, k_pos, nq: int, nk: int, window: int):
@@ -643,6 +696,24 @@ def _moe_local(x, router, w1, w3, w2, cfg: TransformerConfig, n_local_experts: i
     return out.to(x.dtype), aux
 
 
+def _moe_replicated(x, router, w1, w3, w2, cfg: TransformerConfig, mesh):
+    """``moe_ffn`` of DTensors (the dry run) whose tokens cannot shard over
+    the mesh (a decode step's few), in a local region as the reference's
+    plan runs it: every rank dispatches every token against its slice of
+    each expert's ff dimension (TP-in-expert; expert-parallel weights are
+    moved to it), and the token-sized partial result sums over `model`.
+    (DTensor's rules fail to view the dispatch buffer's group dimension,
+    of size 1, sharded over the data axes.)"""
+    w_spec, w2_spec = P(None, None, "model"), P(None, "model", None)
+
+    def body(xl, rl, w1l, w3l, w2l):
+        out, aux = moe_ffn(xl, rl, w1l, w3l, w2l, cfg)
+        return psum(out, "model"), aux
+
+    return shard_map(body, mesh, (P(None, None), P(None, None), w_spec, w_spec, w2_spec),
+                     (P(None, None), P()))(x, router, w1, w3, w2)
+
+
 def moe_ffn_shard_map(x, router, w1, w3, w2, cfg: TransformerConfig):
     """Explicit-collective MoE over the ambient mesh (``set_mesh``).
 
@@ -662,6 +733,8 @@ def moe_ffn_shard_map(x, router, w1, w3, w2, cfg: TransformerConfig):
     ep = E % tp == 0 and T % (ds * tp) == 0 and T >= 4 * ds * tp
     if (not ep and (T % ds != 0 or T < 4 * ds)) or not dsh:
         # decode-sized token counts cannot shard over the mesh
+        if is_dtensor(x):
+            return _moe_replicated(x, router, w1, w3, w2, cfg, mesh)
         return moe_ffn(x, router, w1, w3, w2, cfg)
     w_spec = P("model", None, None) if ep else P(None, None, "model")
     w2_spec = P("model", None, None) if ep else P(None, "model", None)
@@ -679,9 +752,88 @@ def moe_ffn_shard_map(x, router, w1, w3, w2, cfg: TransformerConfig):
 # Layer / forward
 # ==========================================================================
 
+def _project_qkv(h, lp, positions, cfg: TransformerConfig):
+    """q [B,S,H,D] and k, v [B,S,KV,D] of the normed input h [B,S,d]: the
+    projections, biases, qk norms and rotations.  The head counts are the
+    weights' widths over ``d_head`` (a rank's own heads in
+    ``_attend_own_heads``)."""
+    cd = cfg.compute_dtype
+    B, S, _ = h.shape
+    D = cfg.d_head
+    q = h @ lp["wq"].to(cd)
+    kk = h @ lp["wk"].to(cd)
+    vv = h @ lp["wv"].to(cd)
+    if cfg.qkv_bias:
+        q = q + lp["bq"].to(cd)
+        kk = kk + lp["bk"].to(cd)
+        vv = vv + lp["bv"].to(cd)
+    q = q.reshape(B, S, q.shape[-1] // D, D)
+    kk = kk.reshape(B, S, kk.shape[-1] // D, D)
+    vv = vv.reshape(B, S, vv.shape[-1] // D, D)
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["q_norm"])
+        kk = rms_norm(kk, lp["k_norm"])
+    q = rope(q, positions, cfg.rope_theta)
+    kk = rope(kk, positions, cfg.rope_theta)
+    return q, kk, vv
+
+
+def _self_attention(S: int, cfg: TransformerConfig):
+    """The attention of an S-token step over its own keys, and the
+    arguments after the positions."""
+    if S > cfg.attn_chunk and S % cfg.attn_chunk == 0:
+        return chunked_attention, (cfg.sliding_window, cfg.attn_chunk)
+    return full_attention, (cfg.sliding_window,)
+
+
+def _attend_own_heads(h, lp, positions, cfg: TransformerConfig):
+    """The attention of a step that keeps no cache, on DTensors (the dry
+    run), in one local region from the normed input h to the heads'
+    output: each rank projects its query heads and only the kv heads they
+    read, and attends them, as the reference's plan does.  (With k and v's
+    weights replicated -- kv heads that do not split over `model` --
+    DTensor would project every kv head on every rank.)  The weights'
+    cotangents are partial over the axes that split the batch or slice a
+    replicated weight."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = h.device_mesh
+    cd = cfg.compute_dtype
+    hpl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+           for p in h.placements]
+    hl = h.redistribute(mesh, hpl).to_local(
+        grad_placements=[p if isinstance(p, Shard) else Partial() for p in hpl])
+
+    def local(w):
+        return w.to(cd).to_local(grad_placements=[
+            p if isinstance(p, Shard) else Partial() for p in w.placements])
+
+    names = ["wq", "wk", "wv"] + (["bq", "bk", "bv"] if cfg.qkv_bias else []) + (
+        ["q_norm", "k_norm"] if cfg.qk_norm else [])
+    w = {n: local(lp[n]) for n in names}
+    D, KV = cfg.d_head, cfg.n_kv_heads
+    heads = [i for i, p in enumerate(lp["wq"].placements) if isinstance(p, Shard)]
+    coord, block = mesh.get_coordinate(), 0
+    for i in heads:
+        block = block * mesh.size(i) + coord[i]
+    Hl = w["wq"].shape[-1] // D
+    if w["wk"].shape[-1] == KV * D:  # replicated: this rank's heads' slice
+        G = cfg.n_heads // KV
+        lo, hi = block * Hl // G, (block * Hl + Hl - 1) // G + 1
+        for n in ("wk", "wv", "bk", "bv"):
+            if n in w:
+                w[n] = w[n][..., lo * D:hi * D]
+    q, kk, vv = _project_qkv(hl, w, positions, cfg)
+    fn, extra = _self_attention(q.shape[1], cfg)
+    o = fn(q, kk, vv, positions, positions, *extra)
+    opl = [Shard(2) if i in heads else p for i, p in enumerate(hpl)]
+    return from_local(o.contiguous(), mesh, opl, (*h.shape[:2], cfg.n_heads, D))
+
+
 def _layer(x, lp, positions, cfg: TransformerConfig, kv_cache=None,
-           cache_pos=None):
-    """One transformer block.  x: [B,S,d].  Returns (y, aux, new_kv).
+           cache_pos=None, keep_kv: bool = True):
+    """One transformer block.  x: [B,S,d].  Returns (y, aux, new_kv)
+    (``new_kv`` None when ``keep_kv`` is false and ``x`` a DTensor).
 
     With ``kv_cache=(ck, cv)`` and ``cache_pos`` (a decode step), the new
     keys and values are written into ``ck``/``cv`` in place at
@@ -691,26 +843,13 @@ def _layer(x, lp, positions, cfg: TransformerConfig, kv_cache=None,
     """
     cd = cfg.compute_dtype
     B, S, d = x.shape
-    h = rms_norm(x, lp["ln1"]).to(cd)
-    q = h @ lp["wq"].to(cd)
-    kk = h @ lp["wk"].to(cd)
-    vv = h @ lp["wv"].to(cd)
-    if cfg.qkv_bias:
-        q = q + lp["bq"].to(cd)
-        kk = kk + lp["bk"].to(cd)
-        vv = vv + lp["bv"].to(cd)
-    q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
-    kk = kk.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
-    vv = vv.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
-    if cfg.qk_norm:
-        q = rms_norm(q, lp["q_norm"])
-        kk = rms_norm(kk, lp["k_norm"])
-    q = rope(q, positions, cfg.rope_theta)
-    kk = rope(kk, positions, cfg.rope_theta)
-
-    if kv_cache is not None:
+    h = _sum_cotangents(rms_norm(x, lp["ln1"]).to(cd))
+    if kv_cache is None and not keep_kv and is_dtensor(h):
+        o, new_kv = _attend_own_heads(h, lp, positions, cfg), None
+    elif kv_cache is not None:
         if cache_pos is None:
             raise ValueError("cache without cache_pos")
+        q, kk, vv = _project_qkv(h, lp, positions, cfg)
         ck, cv = kv_cache  # [B, S_cache, KV, D]
         Sc = ck.shape[1]
         slot = cache_pos % Sc if cfg.sliding_window > 0 else cache_pos
@@ -722,19 +861,16 @@ def _layer(x, lp, positions, cfg: TransformerConfig, kv_cache=None,
                     cfg.sliding_window)
         new_kv = (ck, cv)
     else:
-        if S > cfg.attn_chunk and S % cfg.attn_chunk == 0:
-            o = _attend(chunked_attention, q, kk, vv, positions, positions,
-                        cfg.sliding_window, cfg.attn_chunk)
-        else:
-            o = _attend(full_attention, q, kk, vv, positions, positions,
-                        cfg.sliding_window)
+        q, kk, vv = _project_qkv(h, lp, positions, cfg)
+        fn, extra = _self_attention(S, cfg)
+        o = _attend(fn, q, kk, vv, positions, positions, *extra)
         new_kv = (kk, vv)
     # a DTensor's partial sums over `model` reduce here, as Megatron's
     # all-reduce after the row-parallel product (no-op on plain tensors)
     o = maybe_shard(o.reshape(B, S, cfg.q_dim) @ lp["wo"].to(cd), _BATCH)
     x = x + o.to(x.dtype)
 
-    h = rms_norm(x, lp["ln2"]).to(cd)
+    h = _sum_cotangents(rms_norm(x, lp["ln2"]).to(cd))
     if cfg.is_moe:
         moe = moe_ffn_shard_map if cfg.moe_shard_map else moe_ffn
         y, aux = moe(h.reshape(B * S, d), lp["router"].to(cd),
@@ -805,10 +941,35 @@ def _embed(model, tokens, cfg: TransformerConfig):
 
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """``_remat_policy``'s choice for one op: keep ``mm`` and ``addmm``."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_policy(x) -> dict:
+    """``checkpoint``'s policy for a layer.  On DTensors (the dry run) the
+    reference's, ``dots_with_no_batch_dims_saveable``: the products
+    without batch dimensions (``mm``) are kept for the backward, the rest
+    (attention's ``bmm``, the MoE's expert einsums, the elementwise ops)
+    recomputed.  On plain tensors the whole layer is recomputed, the
+    least memory on one card."""
+    if not is_dtensor(x):
+        return {}
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                            _save_dots)}
+
+
 def forward(model, tokens, cfg: TransformerConfig, positions=None):
     """tokens: [B,S] -> (final hidden states [B,S,d] (pre lm_head), the
     summed aux loss).  With ``cfg.remat`` and gradients on, each layer is
-    recomputed in the backward (``torch.utils.checkpoint``)."""
+    recomputed in the backward (``torch.utils.checkpoint``; on DTensors
+    its products without batch dimensions are kept: ``_remat_policy``)."""
     B, S = tokens.shape
     if positions is None:
         positions = _arange(S, tokens)
@@ -817,7 +978,7 @@ def forward(model, tokens, cfg: TransformerConfig, positions=None):
     names = sorted(n for n, _ in model.layers.named_parameters())
 
     def body(x, *vals):
-        y, aux, _ = _layer(x, dict(zip(names, vals)), positions, cfg)
+        y, aux, _ = _layer(x, dict(zip(names, vals)), positions, cfg, keep_kv=False)
         return y, aux
 
     remat = cfg.remat and torch.is_grad_enabled()
@@ -826,11 +987,11 @@ def forward(model, tokens, cfg: TransformerConfig, positions=None):
         vals = [lp[n] for n in names]
         if remat:
             x, aux = checkpoint(body, x, *vals, use_reentrant=False,
-                                preserve_rng_state=False)
+                                preserve_rng_state=False, **_remat_policy(x))
         else:
             x, aux = body(x, *vals)
         auxs.append(aux)
-    x = rms_norm(x, model.final_ln)
+    x = _sum_cotangents(rms_norm(x, model.final_ln))
     return x, torch.stack(auxs).sum()
 
 

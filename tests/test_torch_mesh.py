@@ -329,6 +329,17 @@ def test_dryrun_cli_writes_ok_and_skipped_records(tmp_path):
 # work on every device in both packages, dcn-v2's sparse step none of it
 RATIO_CELLS = [("qwen3-0.6b", "decode_32k"), ("gin-tu", "molecule"),
                ("dcn-v2", "train_batch")]
+# cells whose device once did work the reference's plan shards, or failed
+# where the reference's record is ok: each now gives a record with at most
+# 1% over the reference's FLOPs a device and at most 4x its wire bytes.
+# dcn-v2 scored every candidate on every device (16x); din and bst failed
+# to view their sharded candidates; mixtral's one-token MoE failed to view
+# a size-1 group sharded over data; mixtral's decode gathered its cache's
+# slots to every device (86x the wire), moonshot's moved its experts'
+# weights by all-gathers (8x).
+BOUND_CELLS = [("din", "retrieval_cand"), ("bst", "retrieval_cand"),
+               ("dcn-v2", "retrieval_cand"), ("mixtral-8x22b", "long_500k"),
+               ("mixtral-8x22b", "decode_32k"), ("moonshot-v1-16b-a3b", "decode_32k")]
 _REF_DRYRUN = """
 import sys
 from repro.launch import dryrun  # sets XLA_FLAGS before jax starts
@@ -346,11 +357,11 @@ def reference_ratios(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=str(root / "src"), JAX_PLATFORMS="cpu")
     proc = subprocess.run(
         [sys.executable, "-c", _REF_DRYRUN, str(out),
-         *(f"{a}:{s}" for a, s in RATIO_CELLS)],
+         *(f"{a}:{s}" for a, s in RATIO_CELLS + BOUND_CELLS)],
         cwd=root, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return {(a, s): json.loads((out / f"{a}__{s}__single.json").read_text())
-            for a, s in RATIO_CELLS}
+            for a, s in RATIO_CELLS + BOUND_CELLS}
 
 
 @pytest.mark.parametrize("arch,shape", RATIO_CELLS, ids=[a for a, _ in RATIO_CELLS])
@@ -369,6 +380,31 @@ def test_dryrun_useful_flops_ratio_is_the_references(arch, shape, reference_rati
     assert rec["status"] == "ok" and ref["status"] == "ok", rec.get("error")
     got, want = rec["roofline"]["useful_flops_ratio"], ref["roofline"]["useful_flops_ratio"]
     assert abs(got / want - 1) < 0.01, (got, want)
+    assert rec["model_flops"] == ref["model_flops"]
+
+
+@pytest.mark.parametrize("arch,shape", BOUND_CELLS, ids=[f"{a}-{s}" for a, s in BOUND_CELLS])
+def test_dryrun_flops_a_device_are_at_most_the_references(arch, shape, reference_ratios,
+                                                          tmp_path):
+    """Each cell gives a record where the reference's does, and no device
+    does more work than the reference's plan gives it: the port's FLOPs a
+    device at most 1% over the reference's (below is the port's own plan:
+    DTensor may split a product XLA keeps whole), its wire bytes a device
+    at most 4x (they are counted another way: each collective the walker
+    sees, against XLA's after fusion)."""
+    ref = reference_ratios[(arch, shape)]
+    try:
+        rec = dryrun.run_cell(arch, shape, "single", tmp_path)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert ref["status"] == "ok", ref.get("error")
+    assert rec["status"] == "ok", rec.get("error")
+    got, want = rec["summary"]["flops_per_device"], ref["summary"]["flops_per_device"]
+    assert got <= 1.01 * want, (got, want)
+    wire = "collective_wire_bytes_per_device"
+    assert rec["summary"][wire] <= 4 * ref["summary"][wire], (rec["summary"][wire],
+                                                              ref["summary"][wire])
     assert rec["model_flops"] == ref["model_flops"]
 
 

@@ -376,6 +376,23 @@ def dtensor_cells(meshes, res):
         cache = normal(*cell.args[1].shape)
         both(name, cell, (T.init_params(gen, cfg), cache, ints(cfg.vocab, (4,)),
                           cell.args[3]), mesh)
+    # one token against a cache sharded over the sequence on every axis
+    # (kv heads that do not split over `model`): split-K attention and the
+    # one-token MoE (TP-in-expert) in local regions
+    b, cfg = small("mixtral-8x22b", n_experts=2)
+    cell = build_cell(b, ShapeSpec("d1", "decode", seq_len=32, batch=1), m24, "single")
+    assert cell.meta["cache_spec"] == str(M.P(None, None, None, ("data", "model"), None,
+                                              None))
+    both("mixtral_one_token_decode", cell,
+         (T.init_params(gen, cfg), normal(*cell.args[1].shape), ints(cfg.vocab, (1,)),
+          cell.args[3]), m24)
+    # a decode step's MoE: too few tokens for expert parallelism, so the
+    # experts' weights move from their expert split to the ff split of
+    # TP-in-expert (an all-to-all)
+    b, cfg = small("moonshot-v1-16b-a3b")
+    cell = build_cell(b, ShapeSpec("d", "decode", seq_len=32, batch=16), m42, "single")
+    both("moonshot_decode", cell, (T.init_params(gen, cfg), normal(*cell.args[1].shape),
+                                   ints(cfg.vocab, (16,)), cell.args[3]), m42)
     # the GNN: dst-sharded full batch (bf16 messages) and molecule readout
     b, gcfg = small("gin-tu")
     N, E = 64, 256
@@ -415,6 +432,21 @@ def dtensor_cells(meshes, res):
                      "hist_mask": torch.from_numpy(rng.random((16, rcfg.seq_len)) < 0.8),
                      "target": ints(rcfg.item_vocab, (16,))}
         both(f"{arch.replace('-', '_')}_serve", cell, (R.init_params(gen, rcfg), batch),
+             m42)
+    # retrieval: one user against candidates sharded over the data axes
+    for arch in ("dcn-v2", "din", "bst"):
+        b, rcfg = small(arch)
+        cell = build_cell(b, ShapeSpec("r", "retrieval", batch=1, n_candidates=64), m42,
+                          "single")
+        if rcfg.kind == "dcn":
+            batch = {"candidates": ints(rcfg.rows_per_field, (64,)),
+                     "dense": normal(1, rcfg.n_dense),
+                     "sparse": ints(rcfg.rows_per_field, (1, rcfg.n_sparse))}
+        else:
+            batch = {"candidates": ints(rcfg.item_vocab, (64,)),
+                     "history": ints(rcfg.item_vocab, (1, rcfg.seq_len)),
+                     "hist_mask": torch.from_numpy(rng.random((1, rcfg.seq_len)) < 0.8)}
+        both(f"{arch.replace('-', '_')}_retrieval", cell, (R.init_params(gen, rcfg), batch),
              m42)
     b, rcfg = small("dcn-v2")
     cell = build_cell(b, ShapeSpec("t", "train", batch=64), m42, "single")
@@ -553,7 +585,9 @@ def test_routed_sparse_step_matches_the_local_step(runs):
 
 DT_CELLS = ["qwen3_train", "moonshot_train", "mixtral_tp_train", "qwen3_prefill",
             "qwen3_decode", "qwen3_decode_split_k", "gin_fullbatch", "gin_molecule",
-            "dcn_v2_serve", "din_serve", "bst_serve", "dcn_v2_routed_train"]
+            "dcn_v2_serve", "din_serve", "bst_serve", "dcn_v2_routed_train",
+            "dcn_v2_retrieval", "din_retrieval", "bst_retrieval",
+            "mixtral_one_token_decode", "moonshot_decode"]
 
 
 @pytest.mark.parametrize("cell", DT_CELLS)
