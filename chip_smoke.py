@@ -135,7 +135,19 @@ Run from the root of a checkout, on a machine with a CUDA card.  Phases:
    NextGEQ probes (past the end included) held exactly to numpy (one
    ``device list:`` line); and the paper's two examples,
    ``examples.quickstart.run`` and ``examples.index_serving.run``, on the
-   card, whose asserts must pass;
+   card, whose asserts must pass.  Then the wide arena: the same generator
+   and seed at 384 lists (``serve --ranked --n-lists 384 --min-len 10000
+   --max-len 2000000 --codec auto``: its corpus, frequencies and index,
+   and the host's answers, built by a worker beside phase 3c), whose
+   ``(n_lists + 1) * stride`` passes 2^31, the reference's int32 key gate;
+   with the launch counts set to 0 just before and read just after, its
+   64 queries and 65,536 NextGEQ cursors through the ``auto`` arena
+   (Stream-VByte rows but for a few EF tiles), through 2 shards of it and
+   through the ``ef`` arena of the same index (all EF tiles), equal to
+   the numpy backend's, and its 64 queries ranked (``--topk 10
+   --resident kernel``), equal to ``exhaustive_topk``; ``decode_search``
+   and ``ef_search`` must have launched (one ``wide arena:`` line: lists,
+   stride, key space, postings, seconds);
 5. index build -- the boolean path's corpus, made again from its seed,
    through the two device partitioners with the launch counts set to 0
    just before and read just after: ``build_partitioned_index(...,
@@ -429,6 +441,15 @@ RETRIEVAL_CHECK = 256  # candidates held to a CPU retrieval
 RETRIEVAL_PROBE = 1 << 16
 RETRIEVAL_MEM_SHARE = 0.85
 DEVICE_LIST_PROBES = 1024  # phase 4's NextGEQ probes through DeviceList
+# phase 4's wide arena: the boolean corpus's generator and seed at more
+# lists than the reference's int32 keys hold ((n_lists + 1) * stride >=
+# 2^31 from 329 lists at its stride near 6.5 M), with the term
+# frequencies of the ranked path; built, with the host's answers, in a
+# worker beside phase 3c
+WIDE_LISTS = 384
+WIDE_QUERIES = 64
+WIDE_CURSORS = 1 << 16  # NextGEQ cursors, held to the numpy backend
+WIDE_SHARDS = 2
 # H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet): the
 # trainer's matmuls run in full f32, TF32 off
 F32_PEAK = 67e12
@@ -705,6 +726,163 @@ def ranked_index(argv, path: str) -> dict:
         pickle.dump({"index": built.pop("index"), "queries": built.pop("queries")},
                     f, protocol=5)
     return {"path": path, **built}
+
+
+def wide_cursors(idx, stride: int):
+    """WIDE_CURSORS (term, probe) cursors over every list, probes in [-1,
+    stride + 1], plus the last list's edges and probes past 2^31."""
+    rng = np.random.default_rng(8)
+    terms = rng.integers(0, idx.n_lists, WIDE_CURSORS - 6)
+    probes = rng.integers(-1, stride + 2, WIDE_CURSORS - 6)
+    last = idx.n_lists - 1
+    end = int(idx.endpoints[idx.list_part_offsets[last + 1] - 1])
+    terms = np.concatenate([terms, [last] * 5 + [0]])
+    probes = np.concatenate([probes, [0, end, end + 1, I32_MAX, 2**40, 2**31]])
+    return terms.astype(np.int64), probes.astype(np.int64)
+
+
+def wide_index(path: str) -> dict:
+    """Phase 4's wide arena, built in a worker beside phase 3c:
+    ``serve.build_ranked`` at WIDE_LISTS lists (the corpus, its term
+    frequencies, the index and its ``auto`` arena, the queries) and the
+    ``ef`` arena of the index, then the answers the card is held to: the
+    numpy backend's AND of the queries and NextGEQ of ``wide_cursors``,
+    and ``exhaustive_topk`` of the queries.  Pickles the index and all of
+    these to ``path``; returns the seconds and ``path``."""
+    sys.path.insert(0, SRC)
+    from repro_torch.core.query_engine import QueryEngine
+    from repro_torch.launch import serve
+    from repro_torch.ranked.bm25 import exhaustive_topk
+
+    built = serve.build_ranked(serve.parse_args(
+        ["--n-lists", str(WIDE_LISTS), *RANKED_ARGS, "--queries",
+         str(WIDE_QUERIES), "--device", "cpu"]))
+    idx, queries = built["index"], built["queries"]
+    t0 = time.perf_counter()
+    host = QueryEngine(idx, backend="numpy")
+    terms, probes = wide_cursors(idx, host.arena.stride)
+    answers = host.intersect_batch(queries)
+    next_geq = host.next_geq_batch(terms, probes)
+    numpy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    topk = exhaustive_topk(idx, queries, TOPK)
+    exhaustive_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.arena_for("ef")
+    ef_build_s = time.perf_counter() - t0
+    idx._transcode = None  # a build cache: the card needs the arenas alone
+    with open(path, "wb") as f:
+        pickle.dump({"index": idx, "queries": queries, "answers": answers,
+                     "terms": terms, "probes": probes, "next_geq": next_geq,
+                     "topk": topk}, f, protocol=5)
+    return {"path": path, "n_postings": built["n_postings"],
+            "freqs_s": built["freqs_s"], "build_s": built["build_s"],
+            "numpy_s": numpy_s, "exhaustive_s": exhaustive_s,
+            "ef_build_s": ef_build_s}
+
+
+def run_wide_path(torch, counters, card, job) -> dict:
+    """Phase 4's wide arena on the card (see ``wide_index``): the boolean
+    engine over the ``auto`` arena, WIDE_SHARDS shards of it and the
+    engine over the ``ef`` arena, each held to the numpy backend's
+    answers, then one ranked batch held to ``exhaustive_topk``; the
+    launch counts set to 0 just before and read just after.  Fails if the
+    key space is under 2^31 or ``decode_search`` or ``ef_search`` never
+    launched.  Returns the line."""
+    from repro_torch.core.query_engine import QueryEngine
+    from repro_torch.ranked.topk_engine import TopKEngine
+
+    t_piece = time.perf_counter()
+    built = job.result()
+    wait_s = time.perf_counter() - t_piece
+    t0 = time.perf_counter()
+    with open(built["path"], "rb") as f:
+        built.update(pickle.load(f))
+    os.remove(built.pop("path"))
+    read_s = time.perf_counter() - t0
+    idx, queries = built["index"], built["queries"]
+    a = idx.arena_for("auto")
+    key_space = (idx.n_lists + 1) * a.stride
+    wide_cursor_share = float(np.mean(built["terms"] * a.stride >= 2**31))
+    if key_space < 2**31 or a.device_ok or not a.stride_ok:
+        fail(f"wide arena: key space {key_space:,} (stride {a.stride:,}) is "
+             "not past the reference's int32 gate under the stride gate")
+    for c in counters.values():
+        c.launches = 0
+    sec = {}
+    t0 = time.perf_counter()
+    engine = QueryEngine(idx, device=DEVICE)
+    if not engine._use_device or engine.device.type != "cuda":
+        fail(f"wide arena: the engine serves on {engine.device}, not the card")
+    got = engine.intersect_batch(queries)
+    sec["and"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nge = engine.next_geq_batch(built["terms"], built["probes"])
+    sec["next_geq"] = time.perf_counter() - t0
+    for q, g, w in zip(queries, got, built["answers"]):
+        if not np.array_equal(g, w):
+            fail(f"wide arena: AND of query {q} != the numpy backend")
+    if not np.array_equal(nge, built["next_geq"]):
+        bad = int((nge != built["next_geq"]).sum())
+        fail(f"wide arena: {bad} NextGEQ answers != the numpy backend")
+    t0 = time.perf_counter()
+    sharded = QueryEngine(idx, device=DEVICE, shards=WIDE_SHARDS)
+    s_got = sharded.intersect_batch(queries)
+    s_nge = sharded.next_geq_batch(built["terms"], built["probes"])
+    sec["shards"] = time.perf_counter() - t0
+    if (any(not np.array_equal(g, w) for g, w in zip(s_got, built["answers"]))
+            or not np.array_equal(s_nge, built["next_geq"])):
+        fail(f"wide arena: {WIDE_SHARDS} shards' answers != the numpy backend")
+    shard_keys = [int(sub.block_keys.max()) for sub in sharded.sharded.shards]
+    del sharded
+    t0 = time.perf_counter()
+    ef_engine = QueryEngine(idx, device=DEVICE, codec_policy="ef")
+    e_got = ef_engine.intersect_batch(queries)
+    e_nge = ef_engine.next_geq_batch(built["terms"], built["probes"])
+    sec["ef"] = time.perf_counter() - t0
+    if (any(not np.array_equal(g, w) for g, w in zip(e_got, built["answers"]))
+            or not np.array_equal(e_nge, built["next_geq"])):
+        fail("wide arena: the ef arena's answers != the numpy backend")
+    ef_tiles = int((ef_engine.arena.block_codec == 1).sum())
+    del ef_engine
+    t0 = time.perf_counter()
+    ranked = TopKEngine(idx, resident="kernel", device=DEVICE)
+    r_got = ranked.topk_batch(queries, TOPK)
+    sec["ranked"] = time.perf_counter() - t0
+    for q, (gd, gs), (wd, ws) in zip(queries, r_got, built["topk"]):
+        if not (np.array_equal(gd, wd) and np.array_equal(gs, ws)):
+            fail(f"wide arena: ranked top-k of query {q} != exhaustive_topk")
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    for k in ("decode_search", "ef_search"):
+        if launches[k] <= 0:
+            fail(f"wide arena: {k} was never launched ({launches})")
+    line = {"n_lists": idx.n_lists, "stride": a.stride, "key_space": key_space,
+            "key_space_over_2_31": key_space / 2**31,
+            "max_block_key": int(a.block_keys.max()),
+            "shard_max_block_keys": shard_keys,
+            "cursors_keyed_past_2_31": wide_cursor_share,
+            "postings": built["n_postings"], "blocks": a.n_blocks,
+            "auto_ef_tiles": int((a.block_codec == 1).sum()) if a.multi else 0,
+            "ef_arena_ef_tiles": ef_tiles,
+            "device_bytes": a.device_nbytes(DEVICE), "queries": len(queries),
+            "cursors": len(built["terms"]), "results": int(sum(
+                r.size for r in got)), "shards": WIDE_SHARDS,
+            "equal": {"numpy_and": True, "numpy_next_geq": True,
+                      "shards": True, "ef_arena": True,
+                      "exhaustive_topk": True},
+            "launches": launches, "seconds": {
+                "host_freqs": built["freqs_s"], "host_build": built["build_s"],
+                "host_numpy": built["numpy_s"],
+                "host_exhaustive": built["exhaustive_s"],
+                "host_ef_arena": built["ef_build_s"], "wait": wait_s,
+                "read": read_s, **sec,
+                "piece": time.perf_counter() - t_piece},
+            "card": card}
+    print(f"[chip_smoke] wide arena: {json.dumps(line)}", flush=True)
+    del engine, ranked, built, idx
+    torch.cuda.empty_cache()
+    return line
 
 
 def ranked_argv(n_queries: int) -> list:
@@ -4006,11 +4184,11 @@ def run_gnn_molecule(torch, card, bundle, shapes) -> dict:
 
 @contextlib.contextmanager
 def host_workers(n_lists: int, ranked_queries: int):
-    """Three spawned worker processes, started before phase 3c so that they
+    """Four spawned worker processes, started before phase 3c so that they
     run beside the LM phase on the card: phase 3d (c)'s store
     (``gnn_sampled_store``), phase 4's oracle (``boolean_oracle``) and
-    phase 6's index (``ranked_index``).  Yields their futures by name;
-    joins the workers on exit."""
+    wide arena (``wide_index``) and phase 6's index (``ranked_index``).
+    Yields their futures by name; joins the workers on exit."""
     import concurrent.futures
     import multiprocessing
     import shutil
@@ -4019,10 +4197,12 @@ def host_workers(n_lists: int, ranked_queries: int):
     d = tempfile.mkdtemp(prefix="chip_smoke_ranked_")
     try:
         with concurrent.futures.ProcessPoolExecutor(
-                3, mp_context=multiprocessing.get_context("spawn")) as pool:
+                4, mp_context=multiprocessing.get_context("spawn")) as pool:
             yield {"gnn": pool.submit(gnn_sampled_store, 0, GNN_SAMPLED_NODES,
                                       GNN_SAMPLED_DEGREE, DEVICE),
                    "oracle": pool.submit(boolean_oracle, n_lists, CHECK_QUERIES),
+                   "wide": pool.submit(wide_index,
+                                       os.path.join(d, "wide.pkl")),
                    "ranked": pool.submit(ranked_index, ranked_argv(ranked_queries),
                                          os.path.join(d, "ranked.pkl"))}
     finally:
@@ -4745,6 +4925,12 @@ def main(argv=None) -> int:
 
         bool_profile = profile_batches(torch, res["engine"].intersect_batch,
                                        res["queries"], card, "boolean")
+        # the wide arena: keys past the reference's int32 gate, on the card
+        wide_counters = {**counters, "bm25_score_probe": bk.bm25_score_probe,
+                         "bm25_score_rows": bk.bm25_score_rows,
+                         "pivot_select": pk.pivot_select,
+                         "pivot_score": sk.pivot_score}
+        run_wide_path(torch, wide_counters, card, jobs["wide"])
 
         phase_s["4 boolean"] = time.perf_counter() - t_phase
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time two checkouts' ``embedding_bag`` and ``pivot_select`` kernels side
-by side on one card.
+"""Time two checkouts' ``embedding_bag`` and ``pivot_select`` kernels, or
+their boolean serving path, side by side on one card.
 
-    python3 kernel_ab.py --against OTHER   # OTHER: the root of a checkout
+    python3 kernel_ab.py --against OTHER             # OTHER: a checkout's root
+    python3 kernel_ab.py --against OTHER --boolean   # chip_smoke's phase 4
 
 Run from the root of a checkout, on a machine with a CUDA card.  It loads
 this checkout's ``src/repro_torch`` and OTHER's under two package names in
@@ -25,6 +26,16 @@ Inputs, made from seeds:
 
 Prints one JSON line a kernel and checkout, then a summary line
 ``{"ab": ...}``; exits non-zero on a mismatch or without a card.
+
+``--boolean`` instead times ``chip_smoke``'s phase 4 serving: this
+checkout's ``launch.serve.run`` builds the full-size boolean index
+(``chip_smoke.N_LISTS`` lists, ``chip_smoke.SERVE_ARGS``) and serves its
+512 queries once; OTHER gets the same index through its ``convert`` (its
+own arena transcode).  Each tree's ``QueryEngine`` on the card serves a
+warm-up batch, then all the queries in batches of 64, in BOOLEAN_PAIRS
+pairs of turns, the order alternating (other, this, this, other, ...);
+every answer must equal the serve run's.  One JSON line a turn (q/s,
+batch p50/p99), then ``{"boolean_ab": ...}`` with each tree's median.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HOST_TURNS = 10  # turns of chip_smoke.HOST_REPS calls a tree, alternated
 PIVOT_CHUNKS = 32_768
 PIVOT_CURSORS = 16_384  # ranked/topk_engine.py MAX_BUCKET
+BOOLEAN_PAIRS = 10  # --boolean: pairs of turns, ~12 s a turn at full size
 
 
 def load_port(root: str, name: str):
@@ -96,6 +108,48 @@ def pivot_inputs(torch):
                  for x in (qb, nblk, np.maximum(qmin, 0), crow))
 
 
+def boolean_ab(ports, card) -> dict:
+    """``--boolean``: both trees' boolean engines over one full-size index,
+    timed in turns; returns each tree's turns."""
+    mods = {label: {m: importlib.import_module(f"{port.__name__}.{m}")
+                    for m in ("kernels._build", "launch.serve", "convert",
+                              "core.query_engine")}
+            for label, port in ports.items()}
+    for label, m in mods.items():
+        t0 = time.perf_counter()
+        m["kernels._build"].build_all(["vbyte_decode", "ef_search"])
+        print(f"[kernel_ab] {label} built in {time.perf_counter()-t0:.1f}s",
+              flush=True)
+    serve = mods["this"]["launch.serve"]
+    res = serve.run(serve.parse_args(["--n-lists", str(cs.N_LISTS),
+                                      *cs.SERVE_ARGS, "--device", "cuda"]))
+    queries, want = res["queries"], res["results"]
+    other_idx = mods["other"]["convert"].index_from_arrays(
+        mods["this"]["convert"].index_arrays(res["index"]))
+    engines = {"this": res["engine"],
+               "other": mods["other"]["core.query_engine"].QueryEngine(
+                   other_idx, device="cuda")}
+    del res
+    engines["other"].intersect_batch(queries[: cs.BATCH])  # upload, warm-up
+    turns = {"other": [], "this": []}
+    order = []
+    for i in range(BOOLEAN_PAIRS):  # which tree goes first alternates
+        order += ["other", "this"] if i % 2 == 0 else ["this", "other"]
+    for label in order:
+        t0 = time.perf_counter()
+        got, lat = serve.serve_batches(engines[label], queries, cs.BATCH)
+        wall = time.perf_counter() - t0
+        if any(not np.array_equal(g, w) for g, w in zip(got, want)):
+            cs.fail(f"{label}: boolean answers differ from the serve run's")
+        row = {"qps": len(queries) / wall,
+               "batch_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+               "batch_p99_ms": float(np.percentile(lat, 99)) * 1e3}
+        turns[label].append(row)
+        print(f"[kernel_ab] {json.dumps({'boolean': label, **row, 'card': card})}",
+              flush=True)
+    return turns
+
+
 def measure(torch, fn) -> dict:
     return {"ms": cs.event_ms(fn, 20), "device_ms": cs.device_ms(torch, fn)}
 
@@ -104,6 +158,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", required=True,
                     help="root of the other checkout (its src/repro_torch)")
+    ap.add_argument("--boolean", action="store_true",
+                    help="time phase 4's boolean serving, not the kernels")
     args = ap.parse_args(argv)
     import torch
 
@@ -113,6 +169,13 @@ def main(argv=None) -> int:
     print(card, flush=True)
     ports = {"other": load_port(os.path.abspath(args.against), "port_other"),
              "this": load_port(HERE, "port_this")}
+    if args.boolean:
+        turns = boolean_ab(ports, card)
+        medians = {label: {k: float(np.median([r[k] for r in rows]))
+                           for k in rows[0]} for label, rows in turns.items()}
+        print(json.dumps({"boolean_ab": turns, "median": medians,
+                          "card": card}), flush=True)
+        return 0
     kernels = {}
     for label, port in ports.items():
         b = importlib.import_module(f"{port.__name__}.kernels._build")

@@ -190,9 +190,12 @@ def make_query_engine(index, config: EngineConfig | None = None):
     return QueryEngine(index, config=config or EngineConfig())
 
 
-def make_topk_engine(index, config: EngineConfig | None = None):
+def make_topk_engine(index, config: EngineConfig | None = None, **kwargs):
     """Ranked BM25 top-k engine over a freq-carrying ``index`` from one
-    ``EngineConfig``."""
+    ``EngineConfig``.
+
+    ``kwargs`` passes through non-config engine knobs (``seed_blocks``).
+    """
     from .ranked.topk_engine import TopKEngine
 
-    return TopKEngine(index, config=config or EngineConfig())
+    return TopKEngine(index, config=config or EngineConfig(), **kwargs)

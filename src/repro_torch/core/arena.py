@@ -22,9 +22,14 @@ Per-block sidecars make every block self-decoding and directly searchable:
     every cursor of a batch at once;
   * ``lane_valid[b, i]`` -- mask of real (non-padding) lanes.
 
-``on(device)`` uploads the arrays to a torch device once, narrowed to int32
-exactly as the reference narrows its device copies; ``device_ok`` says
-whether the int32 key space is wide enough.
+``on(device)`` uploads the arrays to a torch device once.  The block keys
+stay int64 there, so one searchsorted locates a cursor whatever the list
+count; every other sidecar is narrowed to int32 as the reference narrows
+its device copies.  ``stride_ok`` is the one device gate: the kernels'
+int32 docIDs must hold ``probe <= stride - 1``, ``value + 128`` and the
+``2^31 - 1`` sentinel.  ``device_ok`` keeps the reference's meaning (its
+int32 keys hold ``(n_lists + 1) * stride``), recorded for checkpoints and
+comparisons only: the torch backend does not read it.
 
 MULTI-CODEC arenas: under ``codec_policy="auto"`` blocks of Elias-Fano
 partitions (under ``"ef"`` every eligible block) are stored as EF tiles
@@ -66,6 +71,9 @@ TAG_EF = 2  # mirrors repro_torch.core.index (which imports this module)
 CODEC_SVB = 0  # block_codec values
 CODEC_EF = 1
 CODEC_POLICIES = ("svb", "auto", "ef")
+# the kernels' int32 docIDs hold probe <= stride - 1, value + 128 and the
+# 2^31 - 1 sentinel while stride stays under this
+STRIDE_LIMIT = 2**31 - BLOCK_VALS - 2
 
 
 @dataclass
@@ -132,11 +140,19 @@ class DeviceArena:
         """True when blocks mix codecs (lens/data hold SVB rows only)."""
         return self.block_codec is not None
 
+    @property
+    def stride_ok(self) -> bool:
+        """Whether the torch backend can serve this arena on a device: the
+        docIDs, not the keys, must fit the kernels' int32."""
+        return self.stride < STRIDE_LIMIT
+
     def on(self, device) -> SimpleNamespace:
         """Tensors of the arena on ``device``, uploaded once per device.
 
-        int32 throughout, as the reference narrows its device copies: the
-        int64 sidecars are cast, and the EF tiles widen from uint16/uint8.
+        ``block_keys`` stays int64 (``(n_lists + 1) * stride`` may pass
+        2^31); the rest is int32, as the reference narrows its device
+        copies: the int64 sidecars are cast, and the EF tiles widen from
+        uint16/uint8.
         A ranked arena adds its freq tiles, the norm codes (kept uint8),
         idf per list, the norm table (float32) and ``lob``, the owning list
         of every block (int32), through which the kernels reach idf.
@@ -153,7 +169,7 @@ class DeviceArena:
                 lens=up(self.lens),
                 data=up(self.data, np.uint8),
                 block_base=up(self.block_base),
-                block_keys=up(self.block_keys),
+                block_keys=up(self.block_keys, np.int64),
                 part_of_block=up(self.part_of_block),
                 first_blk=up(self.first_blk),
                 list_blk_offsets=up(self.list_blk_offsets),
@@ -342,7 +358,8 @@ def build_arena(index, codec_policy: str = "auto") -> DeviceArena:
         list_blk_offsets[:] = np.concatenate(
             [t.first_blk, [nb]]
         )[index.list_part_offsets]
-    # int32 device keys must hold probe + term*stride and value + 128
+    # the reference's gate: its int32 device keys hold probe + term*stride
+    # and value + 128 (the port's device path reads stride_ok instead)
     device_ok = (index.n_lists + 1) * stride < 2**31 - BLOCK_VALS - 2
 
     return DeviceArena(

@@ -25,6 +25,12 @@ The subtleties, kept exactly as the reference has them:
   cast -- an int64 probe >= 2^31 must resolve as past-the-end, not wrap
   negative and clip to probe 0.
 
+* **int64 keys** (``locate_graph``): terms and probes fit int32 once the
+  stride does (``DeviceArena.stride_ok``), but ``probe + term * stride``
+  reaches ``(n_lists + 1) * stride``, so the locate forms its keys in
+  int64 against the arena's int64 ``block_keys``.  The TPU reference keeps
+  int32 keys (x64 off) and serves a wider index from the host.
+
 * **sentinel lane** (``flat_init``): one extra lane (value -1, key int64
   max) keeps a past-the-end searchsorted result a valid gather index;
   callers mask with ``lane_end`` afterwards.
@@ -97,14 +103,17 @@ def group_cursors(terms, probes, stride: int):
 
 
 def locate_graph(block_keys, list_blk_offsets, stride, nb, terms, probes):
-    """Locate over resident int32 keys: ONE searchsorted.
+    """Locate over resident int64 keys: ONE searchsorted.
 
-    Maps int32 cursor tensors to ``(rows, pe, past)``: ``rows`` the arena
-    row holding each cursor's answer (clamped in-range), ``pe`` the
-    effective probe (0 where past the end), ``past`` the past-the-end mask.
+    Maps int32 cursor tensors to ``(rows, pe, past)``: ``rows`` the int32
+    arena row holding each cursor's answer (clamped in-range), ``pe`` the
+    int32 effective probe (0 where past the end), ``past`` the past-the-end
+    mask.  The keys are formed in int64: ``term * stride`` passes 2^31 on
+    an index of more than ``2^31 / stride`` lists.
     """
     pc = probes.clamp(0, stride - 1)
-    k = torch.searchsorted(block_keys, pc + terms * stride, out_int32=True)
+    keys = pc.long() + terms.long() * stride
+    k = torch.searchsorted(block_keys, keys, out_int32=True)
     past = k >= list_blk_offsets[terms.long() + 1]
     rows = k.clamp(max=nb - 1)
     pe = torch.where(past, 0, pc)
@@ -287,12 +296,13 @@ class EngineCore:
             raise ValueError(f"unknown backend {backend!r}")
         self.device = None
         if self.backend == "torch":
-            if not arena.device_ok:
+            if not arena.stride_ok:
                 raise RuntimeError(
-                    "arena.device_ok is False: (n_lists + 1) * stride does "
-                    "not fit the int32 device keys, so the torch backend "
-                    "cannot serve this index; use backend='numpy' for the "
-                    "host path"
+                    f"arena.stride_ok is False: stride {arena.stride} (the "
+                    "largest docID + 2) is not below 2^31 - 130, so the "
+                    "kernels' int32 docIDs cannot hold this index and the "
+                    "torch backend cannot serve it; use backend='numpy' for "
+                    "the host path"
                 )
             self.device = resolve_device(device)
         self.cache_parts = int(cache_parts)

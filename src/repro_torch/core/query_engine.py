@@ -260,10 +260,8 @@ class QueryEngine:
     # ------------------------------------------------------------------
     @property
     def _use_device(self) -> bool:
-        if self.sharded is not None:
-            # all_device_ok reads the routing metadata alone -- it must not
-            # force the per-shard arena slices to materialize
-            return self.backend == "torch" and self.sharded.all_device_ok
+        # shards share the global arena's stride, which the core's
+        # constructor has already held to the device gate
         return self.core.use_device
 
     def _shard_core(self, s: int) -> EngineCore:

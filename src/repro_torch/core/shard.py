@@ -254,7 +254,10 @@ class ShardedArena:
 
     @property
     def all_device_ok(self) -> bool:
-        """Per-shard int32-key feasibility, WITHOUT materializing slices."""
+        """The reference's per-shard int32-key gate, from the routing
+        metadata alone (the slices are not materialized).  Kept beside
+        each sub-arena's ``device_ok`` for parity: the torch path locates
+        over int64 keys and reads the shared stride's ``stride_ok``."""
         nl_m = max((len(f) for f in self.lists_of), default=0)
         return bool((nl_m + 1) * self.arena.stride < 2**31 - BLOCK_VALS - 2)
 

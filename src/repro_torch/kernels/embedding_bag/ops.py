@@ -1,9 +1,9 @@
 """Bag reductions over an embedding table.
 
-Counterpart of ``repro/kernels/embedding_bag/ops.py``.  The reference's
-``use_kernel`` and ``interpret`` knobs do not carry over: the tensors'
-device picks the route (the CUDA kernel on the card, its plain version on
-the CPU).
+Counterpart of ``repro/kernels/embedding_bag/ops.py``.  The tensors'
+device picks the kernel's route (the CUDA kernel on the card, its plain
+version on the CPU); the reference's ``use_kernel`` keyword carries over,
+its ``interpret`` (a Pallas mode) does not.
 """
 
 from __future__ import annotations
@@ -11,12 +11,18 @@ from __future__ import annotations
 import torch
 
 from .kernel import embedding_bag
+from .ref import embedding_bag_ref
 
 
-def multi_hot_embed(table, ids, mask):
+def multi_hot_embed(table, ids, mask, use_kernel: bool = True):
     """Multi-hot bag with a boolean mask -> [B, D] f32: ids [B, K] int32,
-    mask [B, K] bool (False slots weigh 0)."""
-    return embedding_bag(table, ids, mask.to(torch.float32))
+    mask [B, K] bool (False slots weigh 0).  ``use_kernel`` runs the
+    ``embedding_bag`` wrapper, else its plain version on the tensors'
+    device."""
+    w = mask.to(torch.float32)
+    if use_kernel:
+        return embedding_bag(table, ids, w)
+    return embedding_bag_ref(table, ids, w)
 
 
 def segment_sum_embed(table, flat_ids, bag_ids, n_bags: int):

@@ -8,7 +8,8 @@ O(1)-state decision machine stays scalar, on the host.
 
 Both entry points run on the card unless the caller passes
 ``device="cpu"`` (then the kernel's plain version serves); there is no
-silent fallback.
+silent fallback.  ``use_kernel=False`` runs the plain version on the
+chosen device, as the reference's keyword does.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from ...api import resolve_device
 from ...core.costs import DEFAULT_F
 from ...core.partition import _state_machine
 from .kernel import BLOCK, gain_scan
+from .ref import gain_scan_ref
 
 
 def check_range(n: int, gap_sum: int) -> None:
@@ -34,12 +36,14 @@ def check_range(n: int, gap_sum: int) -> None:
         )
 
 
-def gain_prefix(gaps: np.ndarray, device="cuda"):
+def gain_prefix(gaps: np.ndarray, use_kernel: bool = True, device="cuda"):
     """(g [n], block_min [nb], block_max [nb]) as numpy int32 arrays.
 
     The sequence is padded with gap 1 (delta 7) to a multiple of 1024; g is
     cut back to n, while block_min / block_max cover the padded blocks, pad
-    elements included.
+    elements included.  ``use_kernel`` runs the ``gain_scan`` wrapper (the
+    CUDA kernel on a card, its plain version on the CPU), else the plain
+    version itself on ``device``.
     """
     n = len(gaps)
     check_range(n, int(np.sum(gaps, dtype=np.int64)))
@@ -47,12 +51,13 @@ def gain_prefix(gaps: np.ndarray, device="cuda"):
     gp = np.ones(n_pad, np.int32)  # pad gap=1 -> delta 7 (harmless, sliced off)
     gp[:n] = gaps
     t = torch.from_numpy(gp).to(resolve_device(device))
-    g, mn, mx = gain_scan(t)
+    g, mn, mx = gain_scan(t) if use_kernel else gain_scan_ref(t, BLOCK)
     return g.cpu().numpy()[:n], mn.cpu().numpy(), mx.cpu().numpy()
 
 
 def optimal_partitioning_blocked(
-    gaps: np.ndarray, F: int = DEFAULT_F, device="cuda",
+    gaps: np.ndarray, F: int = DEFAULT_F, use_kernel: bool = True,
+    device="cuda",
 ) -> np.ndarray:
     """Exact paper partitioning, gain phase on the kernel.
 
@@ -62,7 +67,8 @@ def optimal_partitioning_blocked(
     ``state_machine`` spans of ``repro_torch.obs`` time the two halves.
     """
     with obs.span("gain_prefix"):
-        g, _mn, _mx = gain_prefix(np.asarray(gaps, np.int32), device=device)
+        g, _mn, _mx = gain_prefix(np.asarray(gaps, np.int32),
+                                  use_kernel=use_kernel, device=device)
     with obs.span("state_machine"):
         deltas = np.diff(np.concatenate([[0], g.astype(np.int64)]))
         return _state_machine(deltas, F, len(gaps))

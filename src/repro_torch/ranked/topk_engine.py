@@ -970,9 +970,8 @@ class TopKEngine:
 
     @property
     def _use_device(self) -> bool:
-        if self.sharded is not None:
-            # routing-metadata-only check: must not force the shard slices
-            return self.backend == "torch" and self.sharded.all_device_ok
+        # shards share the global arena's stride, which the core's
+        # constructor has already held to the device gate
         return self.core.use_device
 
     def contributions(self, terms, docs) -> np.ndarray:

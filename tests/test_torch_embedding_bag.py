@@ -332,3 +332,25 @@ def _shifted(x, by):
     flat = torch.empty(x.numel() + by, dtype=x.dtype, device=x.device)
     flat[by:] = x.reshape(-1)
     return flat[by:].view(x.shape)
+
+
+def test_multi_hot_embed_use_kernel_false_runs_the_plain_version(monkeypatch):
+    """The reference's ``use_kernel`` keyword: False runs the plain version
+    on the tensors' device, never the wrapper; bit-equal to the wrapper's
+    CPU route and within the reference's own tolerance of its oracle."""
+    rng = np.random.default_rng(6)
+    table, ids, mask = _inputs(rng, 16, 8, 200, 16)
+    args = (torch.from_numpy(table), torch.from_numpy(ids),
+            torch.from_numpy(mask))
+    with_kernel = tops.multi_hot_embed(*args)
+
+    def no_wrapper(*a, **kw):
+        raise AssertionError("use_kernel=False must not reach embedding_bag")
+
+    monkeypatch.setattr(tops, "embedding_bag", no_wrapper)
+    got = tops.multi_hot_embed(*args, use_kernel=False)
+    assert torch.equal(got, with_kernel)
+    want = rops.multi_hot_embed(jnp.asarray(table), jnp.asarray(ids),
+                                jnp.asarray(mask), use_kernel=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)

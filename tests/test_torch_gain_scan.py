@@ -198,3 +198,30 @@ def test_cuda_kernel_matches_plain_version():
         assert tk.gain_scan.launches == before + 1
         for g, w in zip(got, gain_scan_ref(gp)):
             assert torch.equal(g.cpu(), w)
+
+
+def _no_wrapper(*a, **kw):
+    raise AssertionError("use_kernel=False must not reach the kernel wrapper")
+
+
+def test_gain_prefix_use_kernel_false_runs_the_plain_version(monkeypatch):
+    """The reference's ``use_kernel`` keyword: False runs the plain version
+    on the chosen device, never the wrapper; both equal the reference's
+    jnp oracle."""
+    gaps = _gaps(np.random.default_rng(11), 3000, 0.7)
+    with_kernel = tops.gain_prefix(gaps, device="cpu")
+    monkeypatch.setattr(tops, "gain_scan", _no_wrapper)
+    got = tops.gain_prefix(gaps, use_kernel=False, device="cpu")
+    want = rops.gain_prefix(gaps, use_kernel=False)
+    for g, k, w in zip(got, with_kernel, want):
+        assert g.dtype == np.int32 and np.array_equal(g, np.asarray(w))
+        assert np.array_equal(g, k)
+
+
+def test_blocked_partitioner_use_kernel_false_matches_reference(monkeypatch):
+    gaps = _gaps(np.random.default_rng(12), 2500, 0.8)
+    monkeypatch.setattr(tops, "gain_scan", _no_wrapper)
+    got = tops.optimal_partitioning_blocked(gaps, 64, use_kernel=False,
+                                            device="cpu")
+    want = rops.optimal_partitioning_blocked(gaps, 64, use_kernel=False)
+    assert np.array_equal(got, want) and np.array_equal(got, ref_optimal(gaps, 64))

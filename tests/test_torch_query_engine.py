@@ -170,19 +170,36 @@ def test_probes_past_int32_range():
 
 
 def test_device_ok_false_arena():
-    """Keys past int32: the torch backend refuses instead of serving from the
-    host; the numpy backend answers as the reference does."""
+    """Keys past int32 (the reference's ``device_ok`` is False): the torch
+    backend serves the index on its device over int64 keys, with no numpy
+    span, and both backends answer as the reference's ``ref`` and
+    ``numpy`` backends do (the reference serves both from its host
+    mirror)."""
+    from repro_torch import obs
+
     rng = np.random.default_rng(5)
     lists = [np.sort(rng.choice(2**30, 800, replace=False)).astype(np.int64)
              for _ in range(3)]
     ref_idx = ref_build(lists, "optimal")
     idx = index_from_arrays(index_arrays(ref_idx))
-    assert not idx.arena_for("auto").device_ok
-    with pytest.raises(RuntimeError, match="device_ok"):
-        QueryEngine(idx, device="cpu")
-    port = QueryEngine(idx, backend="numpy")
-    for backend in ("numpy", "ref"):  # the reference serves both from numpy
-        assert_engines_agree(port, RefEngine(ref_idx, backend=backend), lists)
+    arena = idx.arena_for("auto")
+    assert not arena.device_ok and arena.stride_ok
+    was = obs.enabled()
+    obs.enable(True)
+    obs.clear_trace()
+    try:
+        port = QueryEngine(idx, device="cpu")
+        assert port._use_device
+        for backend in ("numpy", "ref"):
+            assert_engines_agree(port, RefEngine(ref_idx, backend=backend),
+                                 lists)
+        spans = [e for e in obs.events() if e["name"] == "decode_search"]
+    finally:
+        obs.clear_trace()
+        obs.enable(was)
+    assert spans and {e["backend"] for e in spans} == {"torch"}
+    host = QueryEngine(idx, backend="numpy")
+    assert_engines_agree(host, RefEngine(ref_idx, backend="numpy"), lists)
 
 
 def test_engine_feeds_the_kernels_what_they_accept(monkeypatch):
