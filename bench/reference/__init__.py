@@ -1,0 +1,2 @@
+"""The plain reference of the benchmark (PyTorch and NumPy only; nothing
+of the program under test)."""
