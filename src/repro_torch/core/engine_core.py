@@ -517,13 +517,14 @@ class EngineCore:
             # the end, and no kernel is launched
             return np.full(n, -1, np.int64), np.full(n, -1, np.int64)
         dev = a.on(self.device)
-        tp, pp = stage_cursors(terms, probes, a.stride, pow2_bucket(n))
-        # padding cursors repeat the first cursor: list 0 at docID 0 may
-        # locate a block of the other codec, whose codec_row does not index
-        # this kernel's tiles
-        tp[n:], pp[n:] = tp[0], pp[0]
-        t = torch.from_numpy(tp).to(self.device)
-        p = torch.from_numpy(pp).to(self.device)
+        with obs.span("dispatch_stage"):
+            tp, pp = stage_cursors(terms, probes, a.stride, pow2_bucket(n))
+            # padding cursors repeat the first cursor: list 0 at docID 0 may
+            # locate a block of the other codec, whose codec_row does not
+            # index this kernel's tiles
+            tp[n:], pp[n:] = tp[0], pp[0]
+            t = torch.from_numpy(tp).to(self.device)
+            p = torch.from_numpy(pp).to(self.device)
         rows, pe, past = locate_graph(
             dev.block_keys, dev.list_blk_offsets, a.stride, a.n_blocks, t, p
         )
@@ -560,12 +561,13 @@ class EngineCore:
         a = self.arena
         if a.block_codec is None or a.n_blocks == 0:
             return self._dispatch(False, terms, probes)
-        terms = np.asarray(terms, dtype=np.int64)
-        probes = np.asarray(probes, dtype=np.int64)
-        pc = np.clip(probes, 0, a.stride - 1)
-        k = np.searchsorted(a.block_keys, pc + terms * a.stride, side="left")
-        codec = a.block_codec[np.minimum(k, a.n_blocks - 1)]
-        ef_j = np.nonzero(codec == CODEC_EF)[0]
+        with obs.span("codec_split"):
+            terms = np.asarray(terms, dtype=np.int64)
+            probes = np.asarray(probes, dtype=np.int64)
+            pc = np.clip(probes, 0, a.stride - 1)
+            k = np.searchsorted(a.block_keys, pc + terms * a.stride, side="left")
+            codec = a.block_codec[np.minimum(k, a.n_blocks - 1)]
+            ef_j = np.nonzero(codec == CODEC_EF)[0]
         n = len(terms)
         if not len(ef_j):
             return self._dispatch(False, terms, probes)

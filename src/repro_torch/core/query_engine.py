@@ -343,7 +343,8 @@ class QueryEngine:
             # queries sharing terms re-probe the same pairs.  Grouping runs
             # BEFORE shard routing, so duplicates collapse across the whole
             # batch whatever shard they land on.
-            g = group_cursors(terms, probes, self.arena.stride)
+            with obs.span("group_cursors", path="member"):
+                g = group_cursors(terms, probes, self.arena.stride)
             if g is not None:
                 idx, inv = g
                 self.stats["grouped_cursors"] += n - len(idx)
@@ -444,6 +445,7 @@ class QueryEngine:
 
     def _member_in(self, terms: np.ndarray, probes: np.ndarray) -> np.ndarray:
         """Membership for the AND filter: probes are decoded docIDs."""
+        obs.count("engine_member_cursors", len(terms))
         if not self.fused:
             return self.member_batch(terms, probes)
         value, _, past = self._fused_raw(

@@ -2,7 +2,8 @@
 
 Off by default; arm with ``REPRO_OBS=1`` or ``obs.enable()``.  Counterpart
 of ``repro.obs``: the same API and metric names (``docs/metrics.md`` is
-the catalogue, which the port follows name for name).
+the catalogue, which the port follows name for name; the spans and
+counters only the port has are in ``catalogue.md`` beside this module).
 
 Quick tour::
 

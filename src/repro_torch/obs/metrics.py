@@ -12,7 +12,8 @@ Naming scheme: ``<subsystem>_<what>[_<unit>]`` in snake_case, unit suffix
 ``_ms`` / ``_bytes`` / ``_s`` for non-count metrics.  Labels are for
 *bounded* dimensions only (backend, shard id, phase name) -- never query
 ids or document ids.  The names follow the reference's catalogue
-(``docs/metrics.md``) name for name.
+(``docs/metrics.md``) name for name; ``catalogue.md`` beside this module
+lists the port's own.
 """
 
 from __future__ import annotations

@@ -6,10 +6,9 @@ a bounded ring and observes the duration into the ``span_ms`` histogram
 (labelled by span name).  When disarmed, ``span()`` returns a shared
 no-op singleton -- no allocation, no clock read, no lock.
 
-Device time is strictly opt-in: ``sp.fence(x)`` marks a torch tensor whose
-device to synchronize at span exit, and the fence only fires when the
-layer is armed, so instrumentation can never add a host sync to an
-uninstrumented run.
+A span times the host's wall clock only: it never synchronizes a device,
+so an armed span adds no host sync either (the reference's ``fence``,
+which would, has no counterpart here; device time is the profiler's).
 
 ``now()`` is the raw clock for code that needs a timestamp across scopes.
 ``profile(logdir)`` wraps ``torch.profiler`` around a region when the
@@ -68,19 +67,13 @@ def event(name: str, **fields) -> None:
 
 
 class Span:
-    """Armed span: wall time always, device time via opt-in fence()."""
+    """Armed span: the host's wall time from entry to exit."""
 
-    __slots__ = ("name", "labels", "_t0", "_depth", "_fence")
+    __slots__ = ("name", "labels", "_t0", "_depth")
 
     def __init__(self, name: str, labels: dict):
         self.name = name
         self.labels = labels
-        self._fence = None
-
-    def fence(self, x) -> None:
-        """Synchronize ``x``'s device at span exit so the span covers
-        device time."""
-        self._fence = x
 
     def __enter__(self):
         depth = getattr(_TLS, "depth", 0)
@@ -90,16 +83,6 @@ class Span:
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        dev_ms = None
-        if self._fence is not None:
-            t_fence = time.perf_counter()
-            dev = getattr(self._fence, "device", None)
-            if dev is not None and dev.type == "cuda":
-                import torch
-
-                torch.cuda.synchronize(dev)
-            dev_ms = (time.perf_counter() - t_fence) * 1e3
-            self._fence = None
         t1 = time.perf_counter()
         _TLS.depth = self._depth
         dur_ms = (t1 - self._t0) * 1e3
@@ -111,8 +94,6 @@ class Span:
             "depth": self._depth,
             "thread": threading.current_thread().name,
         }
-        if dev_ms is not None:
-            rec["fence_ms"] = dev_ms
         if self.labels:
             rec.update(self.labels)
         _RING.append(rec)
@@ -126,9 +107,6 @@ class _NullSpan:
     """Disarmed singleton: every method is a constant no-op."""
 
     __slots__ = ()
-
-    def fence(self, x) -> None:
-        pass
 
     def __enter__(self):
         return self

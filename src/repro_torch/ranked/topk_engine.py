@@ -267,7 +267,9 @@ class TopKEngine:
         function -- a plain loop, deliberately not a comprehension, so every
         materialization has ONE stable site.  Each round fetches here
         exactly once per bucket, after the whole round has been launched.
+        Each call is one ``ranked_fetches`` count when obs is armed.
         """
+        obs.count("ranked_fetches")
         out = []
         for a in arrays:
             out.append(a.cpu().numpy())
@@ -635,103 +637,105 @@ class TopKEngine:
         rests: dict = {}
         # ---- collect every (query, term) pair, then ONE batched qmin
         # reduction over all their blocks
-        pair_meta, rest_l, mult_l, theta_l, share_l = [], [], [], [], []
-        for i, (terms, mult) in enumerate(specs):
-            if len(terms) == 0:
-                continue
-            ub = mult * self.list_ub[terms]
-            total_ub = float(ub.sum())
-            aligned = self._aligned_rest(terms, mult)
-            for j, (rows_t, rest) in enumerate(aligned):
-                nb_t = len(rows_t)
-                self.stats["blocks_total"] += nb_t
-                if nb_t == 0:
+        with obs.span("pivot_emit"):
+            pair_meta, rest_l, mult_l, theta_l, share_l = [], [], [], [], []
+            for i, (terms, mult) in enumerate(specs):
+                if len(terms) == 0:
                     continue
-                share = (
-                    float(theta[i]) * float(ub[j]) / total_ub
-                    if total_ub > 0 and np.isfinite(theta[i])
-                    else -np.inf
-                )
-                pair_meta.append((i, j, int(terms[j]), nb_t))
-                rest_l.append(rest)
-                mult_l.append(float(mult[j]))
-                theta_l.append(float(theta[i]))
-                share_l.append(share)
-                params[(i, j)] = (float(mult[j]), share)
-                rests[(i, j)] = (int(rows_t[0]), rest)
-        if not pair_meta:
-            return segments, params
-        sizes = np.array([m[3] for m in pair_meta])
-        qmin_all = qmin_for(
-            np.repeat(mult_l, sizes),
-            np.concatenate(rest_l),
-            np.repeat(theta_l, sizes),
-            self._deq64,
-        )
-        # the proportional-share floor, one bisection over the pairs
-        q_share = qmin_for(
-            np.asarray(mult_l), np.zeros(len(pair_meta)),
-            np.asarray(share_l), self._deq64,
-        )
-        qmin_all = np.maximum(qmin_all, np.repeat(q_share, sizes))
+                ub = mult * self.list_ub[terms]
+                total_ub = float(ub.sum())
+                aligned = self._aligned_rest(terms, mult)
+                for j, (rows_t, rest) in enumerate(aligned):
+                    nb_t = len(rows_t)
+                    self.stats["blocks_total"] += nb_t
+                    if nb_t == 0:
+                        continue
+                    share = (
+                        float(theta[i]) * float(ub[j]) / total_ub
+                        if total_ub > 0 and np.isfinite(theta[i])
+                        else -np.inf
+                    )
+                    pair_meta.append((i, j, int(terms[j]), nb_t))
+                    rest_l.append(rest)
+                    mult_l.append(float(mult[j]))
+                    theta_l.append(float(theta[i]))
+                    share_l.append(share)
+                    params[(i, j)] = (float(mult[j]), share)
+                    rests[(i, j)] = (int(rows_t[0]), rest)
+            if not pair_meta:
+                return segments, params
+            sizes = np.array([m[3] for m in pair_meta])
+            qmin_all = qmin_for(
+                np.repeat(mult_l, sizes),
+                np.concatenate(rest_l),
+                np.repeat(theta_l, sizes),
+                self._deq64,
+            )
+            # the proportional-share floor, one bisection over the pairs
+            q_share = qmin_for(
+                np.asarray(mult_l), np.zeros(len(pair_meta)),
+                np.asarray(share_l), self._deq64,
+            )
+            qmin_all = np.maximum(qmin_all, np.repeat(q_share, sizes))
 
-        rows_l, qmin_l, shard_l, cur_ij = [], [], [], []
-        pair_cuts = np.zeros(len(pair_meta) + 1, np.int64)
-        np.cumsum(sizes, out=pair_cuts[1:])
-        for p, (i, j, t, nb_t) in enumerate(pair_meta):
-            qmin_b = qmin_all[pair_cuts[p] : pair_cuts[p + 1]]
-            if qmin_b.min() >= QMIN_NONE:
-                del params[(i, j)], rests[(i, j)]
-                continue  # no block of this term can reach theta
-            if routed:
-                s, lt = self.sharded.route_one(t)
-                offs = pcs[s].offsets
-                c0, c1 = int(offs[lt]), int(offs[lt + 1])
-                shard_l.append(np.full(c1 - c0, s, np.int64))
-            else:
-                c0, c1 = int(pc.offsets[t]), int(pc.offsets[t + 1])
-            tile = np.full(((c1 - c0) * BLOCK_VALS,), QMIN_NONE, np.int64)
-            tile[:nb_t] = qmin_b
-            rows_l.append(np.arange(c0, c1, dtype=np.int64))
-            qmin_l.append(tile.reshape(c1 - c0, BLOCK_VALS))
-            cur_ij.extend([(i, j)] * (c1 - c0))
-        if not rows_l:
-            return segments, params
-        rows = np.concatenate(rows_l)
-        qmins_c = np.concatenate(qmin_l)
-        self.stats["pivot_chunks"] += len(rows)
+            rows_l, qmin_l, shard_l, cur_ij = [], [], [], []
+            pair_cuts = np.zeros(len(pair_meta) + 1, np.int64)
+            np.cumsum(sizes, out=pair_cuts[1:])
+            for p, (i, j, t, nb_t) in enumerate(pair_meta):
+                qmin_b = qmin_all[pair_cuts[p] : pair_cuts[p + 1]]
+                if qmin_b.min() >= QMIN_NONE:
+                    del params[(i, j)], rests[(i, j)]
+                    continue  # no block of this term can reach theta
+                if routed:
+                    s, lt = self.sharded.route_one(t)
+                    offs = pcs[s].offsets
+                    c0, c1 = int(offs[lt]), int(offs[lt + 1])
+                    shard_l.append(np.full(c1 - c0, s, np.int64))
+                else:
+                    c0, c1 = int(pc.offsets[t]), int(pc.offsets[t + 1])
+                tile = np.full(((c1 - c0) * BLOCK_VALS,), QMIN_NONE, np.int64)
+                tile[:nb_t] = qmin_b
+                rows_l.append(np.arange(c0, c1, dtype=np.int64))
+                qmin_l.append(tile.reshape(c1 - c0, BLOCK_VALS))
+                cur_ij.extend([(i, j)] * (c1 - c0))
+            if not rows_l:
+                return segments, params
+            rows = np.concatenate(rows_l)
+            qmins_c = np.concatenate(qmin_l)
+            self.stats["pivot_chunks"] += len(rows)
 
         # ---- the pivot round (per shard when routed)
-        if not use_dev:
-            kept, cnt, _, _ = pivot_select_np(
-                pc.qb[rows], qmins_c, pc.nblk[rows]
-            )
-        elif routed:
-            kept, cnt, cur_ij, grows = self._pivot_routed(
-                rows, qmins_c, shard_l, cur_ij
-            )
-        else:
-            # cursors whose slot scores will be read AND whose chunk is not
-            # already hot take the fused pivot+score launch; the rest take
-            # the plain pivot (same kept blocks either way)
-            fuse = (
-                self._fusable_cursors(rows, cur_ij, theta, pc)
-                if want_scores
-                else np.zeros(len(rows), bool)
-            )
-            kept = np.empty((len(rows), BLOCK_VALS), np.int64)
-            cnt = np.empty(len(rows), np.int64)
-            plain = ~fuse
-            if plain.any():
-                kept[plain], cnt[plain] = self._pivot_dev_on(
-                    rows[plain], qmins_c[plain]
+        with obs.span("pivot_round"):
+            if not use_dev:
+                kept, cnt, _, _ = pivot_select_np(
+                    pc.qb[rows], qmins_c, pc.nblk[rows]
                 )
-            if fuse.any():
-                kept[fuse], cnt[fuse] = self._pivot_score_dev_on(
-                    rows[fuse], qmins_c[fuse], pc
+            elif routed:
+                kept, cnt, cur_ij, grows = self._pivot_routed(
+                    rows, qmins_c, shard_l, cur_ij
                 )
-        if not routed:
-            grows = (pc.base[rows][:, None] + kept)[kept >= 0]
+            else:
+                # cursors whose slot scores will be read AND whose chunk is not
+                # already hot take the fused pivot+score launch; the rest take
+                # the plain pivot (same kept blocks either way)
+                fuse = (
+                    self._fusable_cursors(rows, cur_ij, theta, pc)
+                    if want_scores
+                    else np.zeros(len(rows), bool)
+                )
+                kept = np.empty((len(rows), BLOCK_VALS), np.int64)
+                cnt = np.empty(len(rows), np.int64)
+                plain = ~fuse
+                if plain.any():
+                    kept[plain], cnt[plain] = self._pivot_dev_on(
+                        rows[plain], qmins_c[plain]
+                    )
+                if fuse.any():
+                    kept[fuse], cnt[fuse] = self._pivot_score_dev_on(
+                        rows[fuse], qmins_c[fuse], pc
+                    )
+            if not routed:
+                grows = (pc.base[rows][:, None] + kept)[kept >= 0]
         self.stats["blocks_kept"] += int(cnt.sum())
         gcuts = np.zeros(len(rows) + 1, np.int64)
         np.cumsum(cnt, out=gcuts[1:])
@@ -812,35 +816,36 @@ class TopKEngine:
         admissible tests as the mirror path's ``_block_docs_filtered``,
         with the lane scores from the hot-block cache / row scorer)."""
         segments, params = self._pivot_select(specs, theta, want_scores=True)
-        self._flat_init()
-        a = self.arena
-        out: list[list[np.ndarray]] = [[] for _ in specs]
-        # only finite-theta segments get lane-filtered, so only THEIR rows
-        # are worth scoring
-        fin = [
-            rows_k
-            for (i, _), (rows_k, _) in segments.items()
-            if np.isfinite(theta[i])
-        ]
-        scores_u = None
-        if fin:
-            urows = np.unique(np.concatenate(fin))
-            scores_u = self._score_rows_batch(urows)
-        for (i, j), (rows_k, rest_k) in sorted(segments.items()):
-            vals = self.core.flat_vals[:-1].reshape(-1, BLOCK_VALS)[rows_k]
-            lv = a.lane_valid[rows_k]
-            if scores_u is None or not np.isfinite(theta[i]):
-                out[i].append(vals[lv])
-                continue
-            mult_t, share = params[(i, j)]
-            pos = np.searchsorted(urows, rows_k)
-            c = mult_t * scores_u[pos]
-            ok = lv & (c + rest_k[:, None] >= theta[i]) & (c >= share)
-            out[i].append(vals[ok])
-        return [
-            np.concatenate(chunks) if chunks else np.zeros(0, np.int64)
-            for chunks in out
-        ]
+        with obs.span("lane_filter"):
+            self._flat_init()
+            a = self.arena
+            out: list[list[np.ndarray]] = [[] for _ in specs]
+            # only finite-theta segments get lane-filtered, so only THEIR rows
+            # are worth scoring
+            fin = [
+                rows_k
+                for (i, _), (rows_k, _) in segments.items()
+                if np.isfinite(theta[i])
+            ]
+            scores_u = None
+            if fin:
+                urows = np.unique(np.concatenate(fin))
+                scores_u = self._score_rows_batch(urows)
+            for (i, j), (rows_k, rest_k) in sorted(segments.items()):
+                vals = self.core.flat_vals[:-1].reshape(-1, BLOCK_VALS)[rows_k]
+                lv = a.lane_valid[rows_k]
+                if scores_u is None or not np.isfinite(theta[i]):
+                    out[i].append(vals[lv])
+                    continue
+                mult_t, share = params[(i, j)]
+                pos = np.searchsorted(urows, rows_k)
+                c = mult_t * scores_u[pos]
+                ok = lv & (c + rest_k[:, None] >= theta[i]) & (c >= share)
+                out[i].append(vals[ok])
+            return [
+                np.concatenate(chunks) if chunks else np.zeros(0, np.int64)
+                for chunks in out
+            ]
 
     # ------------------------------------------------------------------
     # batched per-(term, doc) contributions
@@ -1120,45 +1125,49 @@ class TopKEngine:
         self._flat_init()
         a, core = self.arena, self.core
         nq = len(specs)
-        t_chunks, d_chunks, cuts = [], [], [0]
-        for terms, _, docs in specs:
-            t_chunks.append(np.repeat(terms, len(docs)))
-            d_chunks.append(np.tile(docs, len(terms)))
-            cuts.append(cuts[-1] + len(terms) * len(docs))
-        if cuts[-1] == 0:
-            return [
-                (np.zeros(0, np.int64), np.zeros(0, np.float64))
-                for _ in specs
-            ], (None if theta is None else theta.copy())
-        t_rep = np.concatenate(t_chunks)
-        d_til = np.concatenate(d_chunks)
-        pos = np.searchsorted(core.flat_keys, d_til + t_rep * a.stride, "left")
-        past = pos >= core.lane_end[t_rep + 1]
-        member = (core.flat_vals[pos] == d_til) & ~past
-        row = np.minimum(pos, a.n_blocks * BLOCK_VALS - 1) >> 7
+        # the membership pass and the UB sums, timed in the rescore only
+        # (the seed's pass, with no k, stays in the seed's own time)
+        member_span = obs.NULL_SPAN if k is None else obs.span("rescore_member")
+        with member_span:
+            t_chunks, d_chunks, cuts = [], [], [0]
+            for terms, _, docs in specs:
+                t_chunks.append(np.repeat(terms, len(docs)))
+                d_chunks.append(np.tile(docs, len(terms)))
+                cuts.append(cuts[-1] + len(terms) * len(docs))
+            if cuts[-1] == 0:
+                return [
+                    (np.zeros(0, np.int64), np.zeros(0, np.float64))
+                    for _ in specs
+                ], (None if theta is None else theta.copy())
+            t_rep = np.concatenate(t_chunks)
+            d_til = np.concatenate(d_chunks)
+            pos = np.searchsorted(core.flat_keys, d_til + t_rep * a.stride, "left")
+            past = pos >= core.lane_end[t_rep + 1]
+            member = (core.flat_vals[pos] == d_til) & ~past
+            row = np.minimum(pos, a.n_blocks * BLOCK_VALS - 1) >> 7
 
-        need_ub = theta is not None
-        mems, ubs = [], []
-        for i, (terms, mult, docs) in enumerate(specs):
-            T, D = len(terms), len(docs)
-            if T == 0 or D == 0:
-                mems.append(np.zeros((T, D), bool))
-                ubs.append(np.zeros(D, np.float64))
-                continue
-            sl = slice(cuts[i], cuts[i + 1])
-            mem = member[sl].reshape(T, D)
-            mems.append(mem)
-            if need_ub:
-                ubs.append(
-                    (
-                        mult[:, None]
-                        * np.where(
-                            mem, self.bounds[row[sl].reshape(T, D)], 0.0
-                        )
-                    ).sum(axis=0)
-                )
-            else:
-                ubs.append(None)
+            need_ub = theta is not None
+            mems, ubs = [], []
+            for i, (terms, mult, docs) in enumerate(specs):
+                T, D = len(terms), len(docs)
+                if T == 0 or D == 0:
+                    mems.append(np.zeros((T, D), bool))
+                    ubs.append(np.zeros(D, np.float64))
+                    continue
+                sl = slice(cuts[i], cuts[i + 1])
+                mem = member[sl].reshape(T, D)
+                mems.append(mem)
+                if need_ub:
+                    ubs.append(
+                        (
+                            mult[:, None]
+                            * np.where(
+                                mem, self.bounds[row[sl].reshape(T, D)], 0.0
+                            )
+                        ).sum(axis=0)
+                    )
+                else:
+                    ubs.append(None)
 
         def pairs_for(sels: list[np.ndarray]):
             """Member-pair segments of the selected doc slots: per query
@@ -1317,6 +1326,10 @@ class TopKEngine:
         """Exact BM25 top-k of each query; (docIDs, f64 scores) per query,
         sorted by (score desc, docID asc) -- identical to the exhaustive
         oracle, including the tie-break."""
+        with obs.span("topk_batch", path="ranked"):
+            return self._topk_batch(queries, k)
+
+    def _topk_batch(self, queries: list[list[int]], k: int):
         a = self.arena
         self.stats["batches"] += 1
         specs = [self._query_spec(q) for q in queries]
@@ -1359,23 +1372,24 @@ class TopKEngine:
         if self.resident == "kernel":
             with obs.span("pivot", path="ranked", resident="kernel"):
                 cand_docs = self._pivot_candidates(specs, theta)
-                final_specs = []
-                for i, (terms, mult) in enumerate(specs):
-                    if len(terms) == 0:
-                        final_specs.append(
-                            (terms, mult, np.zeros(0, np.int64))
+                with obs.span("candidate_union"):
+                    final_specs = []
+                    for i, (terms, mult) in enumerate(specs):
+                        if len(terms) == 0:
+                            final_specs.append(
+                                (terms, mult, np.zeros(0, np.int64))
+                            )
+                            continue
+                        cand_chunks = [seeds[i]] if i in seeds else []
+                        if len(cand_docs[i]):
+                            cand_chunks.append(cand_docs[i])
+                        cand = (
+                            np.unique(np.concatenate(cand_chunks))
+                            if cand_chunks
+                            else np.zeros(0, np.int64)
                         )
-                        continue
-                    cand_chunks = [seeds[i]] if i in seeds else []
-                    if len(cand_docs[i]):
-                        cand_chunks.append(cand_docs[i])
-                    cand = (
-                        np.unique(np.concatenate(cand_chunks))
-                        if cand_chunks
-                        else np.zeros(0, np.int64)
-                    )
-                    self.stats["candidates"] += len(cand)
-                    final_specs.append((terms, mult, cand))
+                        self.stats["candidates"] += len(cand)
+                        final_specs.append((terms, mult, cand))
             with obs.span("rescore", path="ranked"):
                 final_scored, theta2 = self._score_specs(final_specs, theta, k)
             self._note_theta(theta2)

@@ -267,7 +267,9 @@ def test_sync_injected_fetch_fires(monkeypatch):
     assert [(f.rule, f.where) for f in findings] == [
         ("sync-regression", "ranked_topk")]
     # the fetch attributes to the innermost repro_torch frame: the caller
-    assert "src/repro_torch/ranked/topk_engine.py::topk_batch" in findings[0].message
+    # (the batch's body, under the span that ``topk_batch`` opens)
+    assert "src/repro_torch/ranked/topk_engine.py::_topk_batch" \
+        in findings[0].message
 
 
 @pytest.mark.parametrize("expr,counted", [
